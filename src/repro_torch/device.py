@@ -1,0 +1,53 @@
+"""Where the port's tensors live, and its fp32 arithmetic contract.
+
+Device rule: numpy inputs go to ``cuda`` unless the caller passes
+``device=``; a tensor stays on its own device.  When no GPU is present and
+the caller asked for none of the CPU, the call raises — there is no silent
+CPU fallback.
+
+Precision rule: every matmul of the port is IEEE fp32 with fp32
+accumulation.  cuBLAS and cuDNN may use TF32 for fp32 inputs when their
+flags allow it; :func:`strict_fp32` turns both flags off and is called
+where the port does its matmuls.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["strict_fp32", "resolve_device", "as_tensor", "as_mask"]
+
+
+def strict_fp32() -> None:
+    """Pin fp32 matmuls to IEEE fp32 (no TF32 in cuBLAS or cuDNN)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(x=None, device=None) -> torch.device:
+    """The device a call runs on: ``device`` if given, else the tensor's
+    own device, else ``cuda`` (raising when no GPU is present)."""
+    if device is None and isinstance(x, torch.Tensor):
+        return x.device
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' or CPU tensors "
+            "to run on the CPU"
+        )
+    return dev
+
+
+def as_tensor(x, device=None) -> torch.Tensor:
+    """A numpy array or tensor as a tensor on the resolved device."""
+    dev = resolve_device(x, device)
+    if isinstance(x, torch.Tensor):
+        return x if x.device == dev else x.to(dev)
+    return torch.as_tensor(np.asarray(x), device=dev)
+
+
+def as_mask(v, device) -> torch.Tensor | None:
+    """An optional row-validity mask as a bool tensor on ``device``."""
+    if v is None:
+        return None
+    return as_tensor(v, device).to(torch.bool)

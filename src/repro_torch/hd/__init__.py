@@ -1,0 +1,42 @@
+"""``repro_torch.hd`` — the set-distance front door of the port.
+
+    from repro_torch.hd import HDConfig, set_distance
+
+    res = set_distance(a, b)                       # variant/method/backend dispatch
+    res.value, res.lower, res.upper, res.stats     # uniform HDResult
+
+Layout (as in ``repro.hd``): registry, resolver, config, result, methods,
+engine.  Corpus search (``repro.hd.search``) is not ported yet.
+"""
+from repro_torch.hd.config import HDConfig
+from repro_torch.hd.engine import HDEngine, set_distance
+from repro_torch.hd import methods as _methods  # noqa: F401  (populates the registry)
+from repro_torch.hd.registry import (
+    BACKENDS,
+    METHODS,
+    VARIANTS,
+    UnsupportedCombination,
+    register,
+    supported_backends,
+    supported_combinations,
+)
+from repro_torch.hd.resolver import TILE_THRESHOLD, resolve_backend, resolve_block_sizes
+from repro_torch.hd.result import HDMeta, HDResult
+
+__all__ = [
+    "set_distance",
+    "HDEngine",
+    "HDConfig",
+    "HDResult",
+    "HDMeta",
+    "UnsupportedCombination",
+    "register",
+    "supported_backends",
+    "supported_combinations",
+    "resolve_backend",
+    "resolve_block_sizes",
+    "TILE_THRESHOLD",
+    "VARIANTS",
+    "METHODS",
+    "BACKENDS",
+]

@@ -1,0 +1,78 @@
+"""Pure backend / block-size resolution for ``backend="auto"``.
+
+Counterpart of ``repro/hd/resolver.py``: plain Python over static facts,
+testable anywhere.  The device kind is the input tensor's
+(``tensor.device.type``: ``"cuda"`` or ``"cpu"``), passed in by the engine.
+
+Where this differs from the reference:
+
+  * On ``cuda``, every single-device exact and prohd dispatch resolves to
+    ``fused_cuda`` at any size — the reference's small-input ``dense``
+    escape is not taken, so the plain versions never carry the main path
+    on the card.
+  * On ``fused_cuda`` the blocks are the kernel's prune-table granularity
+    (``kernels.hausdorff.hausdorff.TABLE_BLOCK``), not the TPU's 512/512
+    VMEM rule: they decide which tiles a prune table can gate, never
+    which values come out.
+  * On ``cpu`` the reference's rules hold: ``dense`` below the tile
+    threshold, the plain fused scan (``tiled``) above it, blocks
+    4096/4096 at D ≤ 64 and 2048/2048 above.
+"""
+from __future__ import annotations
+
+from repro_torch.hd import registry
+from repro_torch.kernels.hausdorff import hausdorff as _kernel
+
+__all__ = ["TILE_THRESHOLD", "resolve_backend", "resolve_block_sizes"]
+
+# Below this many rows on a side, one dense GEMM beats the scan machinery
+# on the CPU.
+TILE_THRESHOLD = 512
+
+# At D ≤ 64 bigger (4096) tiles amortise the CPU scan's loop overhead best;
+# at high D the d² tile dominates cache and 2048 wins.
+LOW_D = 64
+
+
+def resolve_backend(
+    variant: str,
+    method: str,
+    n_a: int,
+    n_b: int,
+    d: int,
+    *,
+    device_kind: str = "cpu",
+) -> str:
+    """A concrete, registered backend for ``backend="auto"``."""
+    supported = registry.supported_backends(variant, method)
+    if not supported:
+        raise registry.UnsupportedCombination(variant, method, "auto")
+
+    def pick(*prefs: str) -> str:
+        for p in prefs:
+            if p in supported:
+                return p
+        return supported[0]
+
+    if device_kind == "cuda":
+        return pick("fused_cuda", "tiled", "dense")
+    if min(n_a, n_b) < TILE_THRESHOLD:
+        return pick("dense", "tiled")
+    return pick("tiled", "dense")
+
+
+def resolve_block_sizes(
+    n_a: int,
+    n_b: int,
+    d: int,
+    *,
+    device_kind: str = "cpu",
+    backend: str = "tiled",
+) -> tuple[int, int]:
+    """(block_a, block_b) defaults; entry points clamp them to the clouds."""
+    del n_a, n_b, device_kind
+    if backend == "fused_cuda":
+        return _kernel.TABLE_BLOCK, _kernel.TABLE_BLOCK
+    if d <= LOW_D:
+        return 4096, 4096
+    return 2048, 2048

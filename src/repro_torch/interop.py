@@ -1,0 +1,89 @@
+"""Carry the reference's state across into the port's objects.
+
+ProHD has no weights: its state is the configuration and the data.  This
+module turns the fields of a reference ``HDConfig`` / ``ProHDConfig``,
+passed as a plain dict (``dataclasses.asdict``), and numpy arrays (clouds,
+masks, projections, directions) into the port's objects, so a test can
+build both packages' inputs from one dict and one set of arrays.  It
+imports nothing of the reference package.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.prohd import ProHDConfig
+from repro_torch.device import as_tensor
+from repro_torch.hd.config import HDConfig
+
+__all__ = [
+    "BACKEND_NAMES",
+    "SUBSET_BACKEND_NAMES",
+    "DROPPED_FIELDS",
+    "backend_name",
+    "hd_config_from_dict",
+    "prohd_config_from_dict",
+    "cloud",
+    "mask",
+]
+
+# Reference name → port name, where they differ.
+BACKEND_NAMES = {"fused_pallas": "fused_cuda"}
+SUBSET_BACKEND_NAMES = {"pallas": "cuda"}
+# Reference fields with no counterpart in the port: ``interpret`` (no
+# interpret mode for a CUDA kernel) and the knobs of the sampling and
+# adaptive methods, which are not ported yet.
+DROPPED_FIELDS = frozenset({
+    "interpret",
+    "sampler",
+    "budget",
+    "budget_relative",
+    "adaptive_alpha0",
+    "adaptive_max_alpha",
+    "adaptive_max_steps",
+})
+
+
+def backend_name(ref_backend: str) -> str:
+    """The port's front-door backend name for a reference one."""
+    return BACKEND_NAMES.get(ref_backend, ref_backend)
+
+
+def _fields(cls, d: dict[str, Any]) -> dict[str, Any]:
+    names = {f.name for f in dataclasses.fields(cls)}
+    unknown = set(d) - names - DROPPED_FIELDS
+    if unknown:
+        raise ValueError(f"{cls.__name__} has no fields {sorted(unknown)}")
+    return {k: v for k, v in d.items() if k in names}
+
+
+def prohd_config_from_dict(d: dict[str, Any]) -> ProHDConfig:
+    """A port ``ProHDConfig`` from a reference ``ProHDConfig``'s fields."""
+    kw = _fields(ProHDConfig, d)
+    if "subset_backend" in kw:
+        kw["subset_backend"] = SUBSET_BACKEND_NAMES.get(kw["subset_backend"], kw["subset_backend"])
+    return ProHDConfig(**kw)
+
+
+def hd_config_from_dict(d: dict[str, Any]) -> HDConfig:
+    """A port ``HDConfig`` from a reference ``HDConfig``'s fields (a nested
+    ``prohd`` dict becomes a port ``ProHDConfig``)."""
+    kw = _fields(HDConfig, d)
+    if kw.get("prohd") is not None:
+        kw["prohd"] = prohd_config_from_dict(dict(kw["prohd"]))
+    return HDConfig(**kw)
+
+
+def cloud(x: np.ndarray, device=None) -> torch.Tensor:
+    """A numpy cloud, projection or direction matrix as an fp32/bf16 tensor
+    (other float types become fp32)."""
+    t = as_tensor(np.ascontiguousarray(x), device)
+    return t if t.dtype in (torch.float32, torch.bfloat16) else t.float()
+
+
+def mask(v: np.ndarray | None, device=None) -> torch.Tensor | None:
+    """A numpy validity mask as a bool tensor (None stays None)."""
+    return None if v is None else as_tensor(np.asarray(v, dtype=bool), device)

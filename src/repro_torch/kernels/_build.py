@@ -1,0 +1,63 @@
+"""Build the port's CUDA sources into shared libraries, at first use.
+
+Each library is compiled from the checkout's own ``csrc/*.cu`` with
+``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the repository root,
+named by a hash of its sources and flags, so a changed source is rebuilt
+and an unchanged one is loaded as is.  The compiler's output (with
+``ptxas``'s registers, shared memory and spills per kernel) is kept beside
+the library as ``<name>-<hash>.log``.  The library exposes a plain C
+interface and is loaded with ``ctypes``; nothing here includes PyTorch's
+headers.  Nothing is built or imported when this module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "load_library"]
+
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, then ``PATH``, then /usr/local/cuda."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(Path(on_path))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def load_library(name: str, sources: list[Path]) -> ctypes.CDLL:
+    """Compile ``sources`` into ``build/kernels/<name>-<hash>.so`` if that
+    file is missing, and load it."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.read_bytes())
+    out = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    if not out.is_file():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}) building {name}:\n{proc.stderr}"
+            )
+        os.replace(tmp, out)
+    return ctypes.CDLL(str(out))

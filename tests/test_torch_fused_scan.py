@@ -1,0 +1,243 @@
+"""The port's fused min-d² scan (plain path) held to the JAX reference.
+
+Same numpy inputs go through ``repro.core.exact.fused_min_sqdists_tiled``
+(the reference kernel's pure-JAX mirror; the Pallas body does not trace on
+this jax), the reference oracle ``repro.kernels.hausdorff.ref``, and the
+port's ``repro_torch.kernels.hausdorff.ops.fused_min_sqdists`` on CPU
+tensors (its plain version).  Tolerances:
+
+  * per min-d² entry: ``2·(D+2)·eps32·scale²`` — two fp32 GEMM-form
+    computations in different k orders;
+  * per HD value: ``fp_value_margin(D, scale, value)`` against float64.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import exact as jexact  # noqa: E402
+from repro.kernels.hausdorff import ref as jref  # noqa: E402
+from repro_torch.core import exact, projections, tile_bounds  # noqa: E402
+from repro_torch.core.fp_margin import fp_value_margin, sqdist_tolerance  # noqa: E402
+from repro_torch.kernels.hausdorff import hausdorff as K  # noqa: E402
+from repro_torch.kernels.hausdorff import ops, ref  # noqa: E402
+
+BLOCK = 128
+
+
+def _clouds(seed, n_a, n_b, d, offset=0.1):
+    rng = np.random.default_rng(seed)
+    a = rng.random((n_a, d), dtype=np.float32)
+    b = rng.random((n_b, d), dtype=np.float32) + np.float32(offset)
+    return a, b
+
+
+def _masks(seed, n_a, n_b):
+    rng = np.random.default_rng(seed + 1)
+    va = rng.random(n_a) > 0.2
+    vb = rng.random(n_b) > 0.2
+    va[0] = vb[0] = True
+    return va, vb
+
+
+def _scale(a, b):
+    return float(max(np.linalg.norm(a, axis=1).max(), np.linalg.norm(b, axis=1).max()))
+
+
+def _oracle_min_sqdists(a, b, vb=None):
+    a64, b64 = a.astype(np.float64), b.astype(np.float64)
+    d2 = ((a64[:, None, :] - b64[None, :, :]) ** 2).sum(-1)
+    if vb is not None:
+        d2 = np.where(vb[None, :], d2, np.inf)
+    return d2.min(axis=1)
+
+
+def _hd64(a, b, va=None, vb=None):
+    def directed(x, y, vx, vy):
+        m = _oracle_min_sqdists(x, y, vy)
+        if vx is not None:
+            m = np.where(vx, m, -np.inf)
+        return np.sqrt(max(m.max(), 0.0))
+
+    return max(directed(a, b, va, vb), directed(b, a, vb, va))
+
+
+def _port_mins(a, b, va=None, vb=None, **kw):
+    t = lambda x: None if x is None else torch.from_numpy(np.ascontiguousarray(x))  # noqa: E731
+    ma, mb = ops.fused_min_sqdists(t(a), t(b), valid_a=t(va), valid_b=t(vb), **kw)
+    return ma.numpy(), mb.numpy()
+
+
+def _assert_entries(port, refv, valid, tol):
+    keep = np.ones(port.shape, bool) if valid is None else valid
+    assert np.all(np.isinf(port[~keep]))
+    np.testing.assert_allclose(port[keep], refv[keep], rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("shape", [(40, 30, 5), (300, 170, 33), (129, 257, 64)])
+def test_fused_min_sqdists_matches_reference(shape, masked):
+    n_a, n_b, d = shape
+    a, b = _clouds(3, n_a, n_b, d)
+    va, vb = _masks(3, n_a, n_b) if masked else (None, None)
+    tol = sqdist_tolerance(d, _scale(a, b))
+
+    pa, pb = _port_mins(a, b, va, vb, block_a=BLOCK, block_b=BLOCK)
+    j = lambda x: None if x is None else jnp.asarray(x)  # noqa: E731
+    ja, jb = jexact.fused_min_sqdists_tiled(
+        jnp.asarray(a), jnp.asarray(b), valid_a=j(va), valid_b=j(vb), block_a=BLOCK, block_b=BLOCK
+    )
+    _assert_entries(pa, np.asarray(ja), va, tol)
+    _assert_entries(pb, np.asarray(jb), vb, tol)
+    # the reference's independent oracle, both directions
+    _assert_entries(pa, np.asarray(jref.min_dists_ref(jnp.asarray(a), jnp.asarray(b), j(vb))), va, tol)
+    _assert_entries(pb, np.asarray(jref.min_dists_ref(jnp.asarray(b), jnp.asarray(a), j(va))), vb, tol)
+
+    h = max(
+        float(exact.finalize_mins(torch.from_numpy(pa), None if va is None else torch.from_numpy(va))),
+        float(exact.finalize_mins(torch.from_numpy(pb), None if vb is None else torch.from_numpy(vb))),
+    )
+    h64 = _hd64(a, b, va, vb)
+    assert abs(h - h64) <= fp_value_margin(d, _scale(a, b), h)
+    h_ref = float(jref.hausdorff_ref(jnp.asarray(a), jnp.asarray(b), j(va), j(vb)))
+    assert abs(h - h_ref) <= fp_value_margin(d, _scale(a, b), h)
+
+
+def test_port_oracle_matches_reference_oracle():
+    a, b = _clouds(5, 50, 40, 7)
+    va, vb = _masks(5, 50, 40)
+    ta, tb, tva, tvb = map(torch.from_numpy, (a, b, va, vb))
+    np.testing.assert_allclose(
+        ref.min_dists_ref(ta, tb, tvb).numpy(),
+        np.asarray(jref.min_dists_ref(jnp.asarray(a), jnp.asarray(b), jnp.asarray(vb))),
+        rtol=1e-6, atol=1e-6,
+    )
+    h = float(ref.hausdorff_ref(ta, tb, tva, tvb, dtype=torch.float64))
+    assert h == pytest.approx(_hd64(a, b, va, vb), rel=1e-12)
+
+
+@pytest.mark.parametrize("seed,shape", [(0, (1, 1, 1)), (811, (38, 8, 17))])
+def test_reference_failing_shapes_against_float64(seed, shape):
+    """Shapes the reference fails in its own conformance sweep, judged
+    against the float64 oracle, masked and raw."""
+    n_a, n_b, d = shape
+    a, b = _clouds(seed, n_a, n_b, d)
+    tol = sqdist_tolerance(d, _scale(a, b))
+    for va, vb in ((None, None), _masks(seed, n_a, n_b)):
+        pa, pb = _port_mins(a, b, va, vb)
+        _assert_entries(pa, _oracle_min_sqdists(a, b, vb), va, tol)
+        _assert_entries(pb, _oracle_min_sqdists(b, a, va), vb, tol)
+        h = max(
+            float(exact.finalize_mins(torch.from_numpy(pa), None if va is None else torch.from_numpy(va))),
+            float(exact.finalize_mins(torch.from_numpy(pb), None if vb is None else torch.from_numpy(vb))),
+        )
+        assert abs(h - _hd64(a, b, va, vb)) <= fp_value_margin(d, _scale(a, b), h)
+
+
+def test_masked_garbage_rows_and_padding_never_leak():
+    """Invalid rows holding NaN/inf change nothing: the valid entries equal
+    those of the clouds without those rows (within the d² tolerance)."""
+    a, b = _clouds(9, 90, 70, 12)
+    tol = sqdist_tolerance(12, _scale(a, b))
+    ga = np.concatenate([a, np.full((10, 12), np.nan, np.float32)])
+    gb = np.concatenate([b, np.full((6, 12), np.inf, np.float32)])
+    va = np.arange(100) < 90
+    vb = np.arange(76) < 70
+    pa, pb = _port_mins(ga, gb, va, vb, block_a=64, block_b=64)
+    ra, rb = _port_mins(a, b, block_a=64, block_b=64)
+    assert not np.isnan(pa).any() and not np.isnan(pb).any()
+    np.testing.assert_allclose(pa[:90], ra, rtol=0, atol=tol)
+    np.testing.assert_allclose(pb[:70], rb, rtol=0, atol=tol)
+    assert np.isinf(pa[90:]).all() and np.isinf(pb[70:]).all()
+
+
+def test_empty_sides():
+    """Empty query side → 0.0; empty target side → +inf (as the reference)."""
+    a, b = _clouds(1, 20, 15, 4)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    none_a = torch.zeros(20, dtype=torch.bool)
+    none_b = torch.zeros(15, dtype=torch.bool)
+    assert float(ops.directed_hausdorff(ta, tb, valid_a=none_a)) == 0.0
+    assert float(ops.directed_hausdorff(ta, tb, valid_b=none_b)) == float("inf")
+    ma, mb = ops.fused_min_sqdists(ta, tb, valid_a=none_a)
+    assert torch.isinf(ma).all() and torch.isinf(mb).all()
+    ref_empty = jexact.hausdorff_fused_tiled(
+        jnp.asarray(a), jnp.asarray(b), valid_a=jnp.zeros(20, bool), valid_b=jnp.zeros(15, bool)
+    )
+    port_empty = ops.hausdorff(ta, tb, valid_a=none_a, valid_b=none_b)
+    assert float(port_empty) == float(ref_empty) == 0.0
+
+
+def _sorted_with_projs(a, b, m):
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    dirs = projections.direction_set(ta, tb, m)
+    sa, pa, _, _ = tile_bounds.order_by_projection(ta, projections.project(ta, dirs))
+    sb, pb, _, _ = tile_bounds.order_by_projection(tb, projections.project(tb, dirs))
+    return sa, pa, sb, pb
+
+
+@pytest.mark.parametrize("d,offset", [(2, 0.1), (16, 3.0)])
+def test_pruned_equals_unpruned_bitwise(d, offset):
+    """At a fixed tile grid, the pruned scan returns bitwise the unpruned
+    row and column mins, and the bounds do skip tiles."""
+    a, b = _clouds(4, 1500, 1100, d, offset=offset)
+    sa, pa, sb, pb = _sorted_with_projs(a, b, projections.default_num_directions(d))
+    for blk in (128, 256):
+        base = ops.fused_min_sqdists(sa, sb, block_a=blk, block_b=blk)
+        pruned = ops.fused_min_sqdists(sa, sb, prune_projs=(pa, pb), block_a=blk, block_b=blk)
+        assert torch.equal(base[0], pruned[0]) and torch.equal(base[1], pruned[1])
+        tables = tile_bounds.prune_tables(sa, pa, None, sb, pb, None, blk, blk)
+        assert float(tile_bounds.skip_fraction(tables)) > 0.0
+    hd_pr = exact.directed_hd_tiled(sa, sb, block=128, prune_projs=(pa, pb))
+    assert torch.equal(hd_pr, exact.directed_hd_tiled(sa, sb, block=128))
+
+
+def test_prune_tables_match_reference():
+    """lb / cut tables agree with the reference's on the same projections."""
+    import jax
+
+    from repro.core import tile_bounds as jtb
+
+    a, b = _clouds(6, 700, 500, 6)
+    sa, pa, sb, pb = _sorted_with_projs(a, b, 2)
+    port = tile_bounds.prune_tables(sa, pa, None, sb, pb, None, 128, 128)
+    ref_tables = jax.jit(lambda *x: jtb.prune_tables(x[0], x[1], None, x[2], x[3], None, 128, 128))
+    refp = ref_tables(*(jnp.asarray(t.numpy()) for t in (sa, pa, sb, pb)))
+    np.testing.assert_allclose(port.lb.numpy(), np.asarray(refp.lb), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(port.cut_a.numpy(), np.asarray(refp.cut_a), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(port.cut_b.numpy(), np.asarray(refp.cut_b), rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(
+        tile_bounds.skip_mask(port).numpy(), np.asarray(jtb.skip_mask(refp))
+    )
+
+
+def test_fit_block_is_a_tile_multiple():
+    assert ops.fit_block(512, 8) == K.TILE
+    assert ops.fit_block(512, 10_000) == 512
+    assert ops.fit_block(200, 10_000) == 256
+    assert ops.fit_block(512, 300) == 384
+
+
+@pytest.mark.parametrize("n_a,n_b", [(8, 8), (41_930, 1 << 20), (4096, 65_536), (1 << 20, 1 << 21)])
+def test_launch_grid_covers_every_tile_pair(n_a, n_b):
+    """One launch covers all of b: the chunks tile the b-tiles exactly,
+    within CUDA's grid.y limit, and a small query side still fills 132 SMs."""
+    tiles_a, n_chunks, per_chunk = K.grid(n_a, n_b, 132)
+    tiles_b = -(-n_b // K.TILE)
+    assert tiles_a == -(-n_a // K.TILE)
+    assert n_chunks <= 65_535 and per_chunk >= 1
+    assert (n_chunks - 1) * per_chunk < tiles_b <= n_chunks * per_chunk
+    assert tiles_a * n_chunks >= min(tiles_a * tiles_b, 132)
+
+
+def test_cuda_launcher_refuses_cpu_tensors_and_cpu_path_never_launches():
+    a, b = _clouds(2, 10, 10, 3)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    z = torch.zeros(10)
+    with pytest.raises(ValueError, match="CUDA"):
+        K.fused_minscan(ta, tb, z, z, z.clone(), z.clone())
+    before = K.fused_minscan.launches
+    ops.fused_min_sqdists(ta, tb)
+    assert K.fused_minscan.launches == before
