@@ -6,8 +6,9 @@
 Phases (each asserts; any failure exits non-zero):
   1. environment: torch/CUDA versions, the card's name and power limit,
      TF32 off for cuBLAS and cuDNN;
-  2. build: compile the fused min-d² scan from
-     src/repro_torch/kernels/hausdorff/csrc/ into build/kernels/;
+  2. build: compile both kernels (the fused min-d² scan and the batched
+     bucket scan) from src/repro_torch/kernels/hausdorff/csrc/ into
+     build/kernels/, one nvcc each, started together;
   3. kernel vs plain version on the same CUDA tensors (fp32 and bf16, masks,
      empty sides, pruning, a grid whose CTAs walk several b-tiles), per
      min-d² entry within 2·(D+2)·eps32·scale², HD within fp_value_margin
@@ -24,12 +25,31 @@ Phases (each asserts; any failure exits non-zero):
      its plain version and torch.cdist as a yardstick, with the kernel's
      outputs held entry by entry against the plain version's at both timed
      shapes (and the masked, directed wrapper call at ProHD's sweep shape).
+Kernel 2 and the corpus search:
+  3b. the batched bucket scan against its plain version on CUDA tensors
+     (shared and per-set queries, a shared slab, ragged caps, an
+     all-invalid set, gated sets, a NaN bound), per min-d² entry within
+     2·(D+2)·eps32·scale²; gated sets +inf, gated vs ungated bitwise, and
+     each lane bitwise against kernel 1 on that set's rows;
+  8. search: the clustered corpus (16,384 sets, D = 256, sizes 48..256) in
+     a SetStore on the card, the certified cascade (top-10) bitwise equal
+     to brute force, values within fp_value_margin of float64; one more
+     (uncounted) run of the search with every kernel-2 wrapper call held
+     entry by entry against the plain version on the same operands — both
+     stage-1 passes of each bucket and every stage-2a pass, at the
+     search's own batch, cap and n_q; then at
+     2,048 sets directed, sequential and anytime ε = 0, each bitwise equal
+     to brute force; store build, per-stage and cascade vs brute-force
+     times;
+  9. CUDA-event times of kernel 2 on the full cap-256 bucket and on the
+     search's largest stage-2a pass, with its bound, its plain version and
+     torch.cdist + amin as a yardstick.
 
-The kernel's launch counter is set to 0 before phase 4 and read after
-phase 6: those are the main path's launches; launches made there only to
-compare the kernel with its plain version are taken back out.  Prints JSON
-lines; the last line is {"ok": true, "device": {...}}.  Imports nothing of
-JAX or of the JAX package.
+Each main path (phases 4-6: set_distance; phase 8: search) runs with both
+kernels' launch counters set to 0 just before it and read just after;
+launches made only to compare a kernel with its plain version are taken
+back out.  Prints JSON lines; the last line is {"ok": true, "device": {...}}.
+Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
@@ -47,6 +67,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 KERNEL_SOURCE = "src/repro_torch/kernels/hausdorff/csrc/fused_minscan.cu"
 TPU_KERNEL = "src/repro/kernels/hausdorff/hausdorff.py:89"
+KERNEL2_SOURCE = "src/repro_torch/kernels/hausdorff/csrc/batched_minscan.cu"
+TPU_KERNEL2 = "src/repro/kernels/hausdorff/batched.py:74"
 # H100 SXM HBM3 rate from NVIDIA's data sheet (bytes/s).
 HBM_BYTES_PER_S = 3.35e12
 # FP32 lanes per SM on Hopper; one FMA = 2 FLOPs per lane per clock.
@@ -58,6 +80,14 @@ N_PROHD = 1_048_576
 N_VARIANT = 65_536
 D = 256
 SWEEP_QUERIES = 41_930
+# The retrieval corpus: the repo's own corpus settings (benchmarks/tables.py,
+# clustered_sets with sizes 48..256 step 8, 32 clusters, spread 10, σ 0.5)
+# at the paper's D = 256; the query is 128 points around set 0's centroid.
+N_CORPUS = 16_384
+N_CORPUS_SMALL = 2_048
+CORPUS_SIZES = tuple(range(48, 257, 8))
+N_QUERY = 128
+K_TOP = 10
 
 
 def emit(obj) -> None:
@@ -103,14 +133,15 @@ def finalize64(mins, valid):
 
 @contextlib.contextmanager
 def uncounted():
-    """Leave the kernel's launch counter as it was: for comparison launches."""
+    """Leave the kernels' launch counters as they were: for comparison launches."""
+    from repro_torch.kernels.hausdorff import batched as KB
     from repro_torch.kernels.hausdorff import hausdorff as K
 
-    n = K.fused_minscan.launches
+    n1, n2 = K.fused_minscan.launches, KB.batched_minscan.launches
     try:
         yield
     finally:
-        K.fused_minscan.launches = n
+        K.fused_minscan.launches, KB.batched_minscan.launches = n1, n2
 
 
 def entry_err(k, p, valid=None) -> float:
@@ -121,6 +152,16 @@ def entry_err(k, p, valid=None) -> float:
         assert torch.isinf(k[~valid]).all() and torch.isinf(p[~valid]).all()
         k, p = k[valid], p[valid]
     return float((k - p).abs().max())
+
+
+def finite_err(k, p) -> float:
+    """max |kernel − plain| where the plain version is finite; the two must
+    be +inf at the same entries (invalid rows, gated sets)."""
+    import torch
+
+    fin = torch.isfinite(p)
+    assert torch.equal(fin, torch.isfinite(k)), "kernel and plain version disagree on +inf entries"
+    return float((k[fin] - p[fin]).abs().max()) if bool(fin.any()) else 0.0
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -172,14 +213,22 @@ def phase_env():
 
 
 def phase_build():
+    """Build both kernels from the checkout, one nvcc each, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.kernels import _build
+    from repro_torch.kernels.hausdorff import batched as KB
     from repro_torch.kernels.hausdorff import hausdorff as K
 
     t0 = time.perf_counter()
-    K.build()
-    logs = sorted(_build.BUILD_DIR.glob("fused_minscan-*.log"))
-    ptxas = [ln.strip() for ln in logs[-1].read_text().splitlines()
-             if "registers" in ln or "spill" in ln] if logs else []
+    with ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(K.build), pool.submit(KB.build)]:
+            f.result()
+    ptxas = {}
+    for name in ("fused_minscan", "batched_minscan"):
+        logs = sorted(_build.BUILD_DIR.glob(f"{name}-*.log"))
+        ptxas[name] = [ln.strip() for ln in logs[-1].read_text().splitlines()
+                       if "registers" in ln or "spill" in ln] if logs else []
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
 
 
@@ -269,6 +318,369 @@ def phase_kernel_vs_plain(seed: int) -> float:
     emit({"phase": "kernel_vs_plain", "cases": rows, "max_abs_err": max_err,
           "b_tiles_per_cta": walks, "low_d_skip_fraction": bite})
     return max_err
+
+
+def batched_case(gen, n_sets, n_q, cap, d, *, per_set_q=False, shared_slab=False):
+    """Random operands for one kernel-2 case: (q, slab, valid_q, valid_slab)."""
+    import torch
+
+    q_shape = (n_sets, n_q, d) if per_set_q else (n_q, d)
+    s_shape = (cap, d) if shared_slab else (n_sets, cap, d)
+    q = torch.randn(q_shape, generator=gen, device=DEVICE)
+    slab = torch.randn(s_shape, generator=gen, device=DEVICE) * 1.5 + 0.25
+    valid_q = None
+    if per_set_q:
+        valid_q = torch.rand(n_sets, n_q, generator=gen, device=DEVICE) > 0.2
+        valid_q[:, 0] = True
+    valid_slab = None
+    if not shared_slab:
+        # each set a valid prefix of random length; set 1 all-invalid
+        lens = torch.randint(1, cap + 1, (n_sets,), generator=gen, device=DEVICE)
+        valid_slab = torch.arange(cap, device=DEVICE)[None, :] < lens[:, None]
+        valid_slab[min(1, n_sets - 1)] = False
+    return q, slab, valid_q, valid_slab
+
+
+def phase_batched_vs_plain(seed: int) -> float:
+    """Kernel 2 against its plain version, gate semantics, and each lane
+    against kernel 1 on that set's rows (bitwise, same norms)."""
+    import torch
+
+    from repro_torch.core.fp_margin import sqdist_tolerance
+    from repro_torch.data.pointclouds import make_generator
+    from repro_torch.kernels.hausdorff import batched as KB
+    from repro_torch.kernels.hausdorff import hausdorff as K
+
+    gen = make_generator(seed + 10, DEVICE)
+    cases = [
+        ("shared query, ragged caps", dict(n_sets=64, n_q=128, cap=256, d=256)),
+        ("shared query, two a-tiles, odd D", dict(n_sets=33, n_q=300, cap=200, d=100)),
+        ("cap 64", dict(n_sets=40, n_q=128, cap=64, d=256)),
+        ("per-set query (stage 1 pass 1)", dict(n_sets=48, n_q=40, cap=128, d=256, per_set_q=True)),
+        ("per-set query, shared slab (stage 1 pass 2)",
+         dict(n_sets=48, n_q=24, cap=128, d=256, per_set_q=True, shared_slab=True)),
+    ]
+    max_err = 0.0
+    rows = []
+    with uncounted():
+        for label, kw in cases:
+            q, slab, vq, vs = batched_case(gen, **kw)
+            n_sets = kw["n_sets"]
+            scale = max(float(torch.linalg.vector_norm(q, dim=-1).max()),
+                        float(torch.linalg.vector_norm(slab, dim=-1).max()))
+            tol = sqdist_tolerance(kw["d"], scale)
+            # gate: a third of the sets skipped, one with a NaN bound
+            lb = torch.rand(n_sets, generator=gen, device=DEVICE)
+            cut = torch.full((n_sets,), 0.66, device=DEVICE)
+            lb[0] = 0.0
+            lb[min(2, n_sets - 1)] = torch.nan
+            gated = ~(lb <= cut)
+            ka, kb = KB.batched_min_sqdists(q, slab, valid_q=vq, valid_slab=vs, lb=lb, cut=cut)
+            pa, pb = KB.batched_min_sqdists_mirror(q, slab, valid_q=vq, valid_slab=vs, lb=lb, cut=cut)
+            torch.cuda.synchronize()
+            assert torch.isinf(ka[gated]).all() and torch.isinf(kb[gated]).all(), label
+            assert torch.isinf(pa[gated]).all() and torch.isinf(pb[gated]).all(), label
+            err = max(finite_err(ka, pa), finite_err(kb, pb))
+            assert err <= tol, (label, err, tol)
+            max_err = max(max_err, err)
+            # gated vs ungated: every computed lane keeps its bits
+            ua, ub = KB.batched_min_sqdists(q, slab, valid_q=vq, valid_slab=vs)
+            assert torch.equal(ua[~gated], ka[~gated]) and torch.equal(ub[~gated], kb[~gated]), label
+            # lane s against kernel 1 on that set's rows, same norm tensors
+            qp, q2 = KB._poison(q, vq)
+            sp, b2 = KB._poison(slab, vs)
+            lane_bitwise = True
+            for s in range(0, n_sets, max(1, n_sets // 6)):
+                qs_, q2s = (qp[s], q2[s]) if qp.ndim == 3 else (qp, q2)
+                ss_, b2s = (sp[s], b2[s]) if sp.ndim == 3 else (sp, b2)
+                m_a = torch.full((qs_.shape[0],), torch.inf, device=DEVICE)
+                m_b = torch.full((ss_.shape[0],), torch.inf, device=DEVICE)
+                K.fused_minscan(qs_.contiguous(), ss_.contiguous(), q2s.contiguous(),
+                                b2s.contiguous(), m_a, m_b)
+                lane_bitwise &= bool(torch.equal(m_a, ua[s]) and torch.equal(m_b, ub[s]))
+            rows.append({"case": label, "shape": [n_sets, kw["n_q"], kw["cap"], kw["d"]],
+                         "max_abs_err": err, "tol": tol, "gated": int(gated.sum()),
+                         "lane_vs_kernel1_bitwise": lane_bitwise})
+            assert lane_bitwise, (label, "kernel 2 lane differs from kernel 1 on the same rows")
+    emit({"phase": "batched_vs_plain", "cases": rows, "max_abs_err": max_err})
+    return max_err
+
+
+def bucket_bound(peak: float, n_sets: int, rows: int, n_q: int, cap: int, d: int, gated: bool = False):
+    """(bound_ms, bound_by, flops) of a bucket pass over ``n_sets`` computed
+    sets holding ``rows`` valid rows in all: the work this data needs is the
+    valid rows' d² entries (padding rows need none), each input read once
+    (the computed sets' slab rows and norms, the query, the gate) and each
+    output written once."""
+    flops = 2.0 * rows * n_q * d
+    nbytes = 4.0 * (rows * d + n_q * d + rows + n_q
+                    + n_sets * (n_q + cap) + (2 * n_sets if gated else 0))
+    op_ms = flops / peak * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(op_ms, byte_ms), ("operations" if op_ms >= byte_ms else "bytes"), flops
+
+
+def time_bucket(label, q, slab, valid_slab, lb, cut, env: dict) -> dict:
+    """CUDA-event times of kernel 2, its plain version and torch.cdist + amin
+    on one bucket pass, with the timed outputs held against each other."""
+    import torch
+
+    from repro_torch.core.fp_margin import sqdist_tolerance
+    from repro_torch.kernels.hausdorff import batched as KB
+
+    n_sets, cap, d = slab.shape
+    n_q = q.shape[0]
+    qp, q2 = KB._poison(q, None)
+    sp, b2 = KB._poison(slab, valid_slab)
+    qe, q2e = qp.expand(n_sets, n_q, d), q2.expand(n_sets, n_q)
+    gl, gc = (None, None) if lb is None else (lb.float().contiguous(), cut.float().contiguous())
+    min_a = torch.empty(n_sets, n_q, device=DEVICE)
+    min_b = torch.empty(n_sets, cap, device=DEVICE)
+
+    def kernel():
+        min_a.fill_(torch.inf)
+        min_b.fill_(torch.inf)
+        KB.batched_minscan(qe, q2e, sp, b2, min_a, min_b, lb=gl, cut=gc)
+
+    with uncounted():
+        ms = cuda_ms(kernel)
+    plain = {}
+
+    def plain_scan():
+        plain["mins"] = KB.batched_min_sqdists_mirror(q, slab, valid_slab=valid_slab, lb=lb, cut=cut)
+
+    plain_ms = cuda_ms(plain_scan)
+    pa, pb = plain.pop("mins")
+    scale = max(float(torch.linalg.vector_norm(q, dim=-1).max()),
+                float(torch.linalg.vector_norm(sp, dim=-1).max()))
+    tol = sqdist_tolerance(d, scale)
+    err = max(finite_err(min_a, pa), finite_err(min_b, pb))
+    assert err <= tol, (label, err, tol)
+    del pa, pb
+
+    def library():
+        dist = torch.cdist(q.expand(n_sets, n_q, d), sp)
+        return dist.amin(dim=2), dist.amin(dim=1)
+
+    library_ms = cuda_ms(library)
+    torch.cuda.empty_cache()
+    on = torch.ones(n_sets, dtype=torch.bool, device=DEVICE) if lb is None else lb <= cut
+    computed = int(on.sum())
+    rows = int(valid_slab[on].sum()) if valid_slab is not None else computed * cap
+    bound_ms, bound_by, flops = bucket_bound(env["fp32_peak_tflops"] * 1e12, computed, rows, n_q, cap, d,
+                                             gated=lb is not None)
+    return {"label": label, "shape": [n_sets, n_q, cap, d], "computed_sets": computed,
+            "valid_rows": rows,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "torch.cdist + amin (distances, not d²; yardstick)",
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err, "tol": tol,
+            "achieved_tflops": flops / (ms * 1e-3) / 1e12}
+
+
+def corpus_store(seed: int, n_sets: int):
+    """The clustered corpus in a SetStore on the card, and the query."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pointclouds import clustered_sets, make_generator
+    from repro_torch.index import SetStore
+
+    t0 = time.perf_counter()
+    sets, _ = clustered_sets(seed, n_sets, D, sizes=CORPUS_SIZES, n_clusters=32, spread=10.0, sigma=0.5)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store = SetStore(dim=D, generator=make_generator(seed, "cpu"), device=DEVICE)
+    store.add_many(sets)
+    store.summaries()
+    buckets = store.packed_buckets()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    q = (np.asarray(sets[0]).mean(axis=0)
+         + np.random.RandomState(11).randn(N_QUERY, D).astype(np.float32) * 0.5).astype(np.float32)
+    info = {"n_sets": n_sets, "generate_s": gen_s, "store_build_s": build_s,
+            "buckets": {str(c): int(b.points.shape[0]) for c, b in sorted(buckets.items())},
+            "slab_bytes": int(sum(b.points.numel() * 4 for b in buckets.values()))}
+    return sets, store, q, info
+
+
+def hd64(q, s, directed: bool) -> float:
+    """float64 (directed) Hausdorff distance of two host clouds."""
+    import numpy as np
+
+    q64, s64 = q.astype(np.float64), s.astype(np.float64)
+    d2 = (q64 * q64).sum(1)[:, None] - 2.0 * q64 @ s64.T + (s64 * s64).sum(1)[None, :]
+    d2 = np.maximum(d2, 0.0)
+    h = float(np.sqrt(d2.min(1).max()))
+    return h if directed else max(h, float(np.sqrt(d2.min(0).max())))
+
+
+SCAN_FORMS = {
+    (3, 3): "stage 1: per-lane subsets vs the lanes' sets",
+    (3, 2): "stage 1: per-lane subsets vs the shared query",
+    (2, 3): "stage 2a: shared query vs the bucket slab",
+}
+
+
+@contextlib.contextmanager
+def checked_scans(rows: list):
+    """Inside the block, hold every call of kernel 2's wrapper against the
+    plain version on the same operands, per min-d² entry within
+    2·(D+2)·eps32·scale², and append one row per call (its operand form,
+    shape, gated lanes and error) to ``rows``."""
+    import torch
+
+    from repro_torch.core.fp_margin import sqdist_tolerance
+    from repro_torch.kernels.hausdorff import batched as KB
+
+    wrapper = KB.batched_min_sqdists
+
+    def checked(q, slab, **kw):
+        ka, kb = wrapper(q, slab, **kw)
+        pa, pb = KB.batched_min_sqdists_mirror(q, slab, **kw)
+        qp, _ = KB._poison(q, kw.get("valid_q"))
+        sp, _ = KB._poison(slab, kw.get("valid_slab"))
+        scale = max(float(torch.linalg.vector_norm(qp, dim=-1).max()),
+                    float(torch.linalg.vector_norm(sp, dim=-1).max()))
+        tol = sqdist_tolerance(q.shape[-1], scale)
+        err = max(finite_err(ka, pa), finite_err(kb, pb))
+        form = SCAN_FORMS[(q.ndim, slab.ndim)]
+        assert err <= tol, (form, tuple(q.shape), tuple(slab.shape), err, tol)
+        lb, cut = kw.get("lb"), kw.get("cut")
+        rows.append({"form": form, "q": list(q.shape), "slab": list(slab.shape),
+                     "gated": 0 if lb is None else int((~(lb <= cut)).sum()),
+                     "max_abs_err": err, "tol": tol})
+        return ka, kb
+
+    KB.batched_min_sqdists = checked
+    try:
+        yield
+    finally:
+        KB.batched_min_sqdists = wrapper
+
+
+def check_search(res, bf, store, label: str) -> None:
+    """A cascade result against brute force on the card: bitwise ids and
+    values, kernel 2 serving every bucket pass, nothing absorbed."""
+    import numpy as np
+
+    assert np.array_equal(res.ids, bf.ids), (label, res.ids, bf.ids)
+    assert np.array_equal(res.values, bf.values), (label, res.values, bf.values)
+    for r in (res, bf):
+        assert r.degraded is False and "fault" not in r.stats and "backend_fallbacks" not in r.stats, (label, r.stats)
+    assert res.stats["masked_backend"] == "batched_cuda", (label, res.stats)
+
+
+def stage1_eigh_s(passes1) -> float:
+    """Seconds that ``torch.linalg.eigh`` alone takes on Gram matrices of
+    stage 1's shapes: one (batch, D, D) call per bucket pass, as stage 1
+    makes it (device synchronised, after a one-matrix warm-up)."""
+    import torch
+
+    total = 0.0
+    for p in passes1:
+        z = torch.randn(p["batch"], N_QUERY + p["capacity"], D, device=DEVICE)
+        gram = z.transpose(-1, -2) @ z
+        torch.linalg.eigh(gram[:1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.linalg.eigh(gram)
+        torch.cuda.synchronize()
+        total += time.perf_counter() - t0
+        del z, gram
+    return total
+
+
+def phase_search(seed: int) -> dict:
+    """The corpus search on the card at 16,384 sets, then directed,
+    sequential and anytime ε = 0 at 2,048 sets, each against brute force."""
+    import numpy as np
+
+    from repro_torch.core.fp_margin import fp_value_margin
+    from repro_torch.hd import search
+    from repro_torch.kernels.hausdorff import batched as KB
+    from repro_torch.kernels.hausdorff import hausdorff as K
+    from repro_torch.obs import trace
+
+    sets, store, q, info = corpus_store(seed, N_CORPUS)
+    runs = {}
+    with trace.capture() as events:
+        n1, n2 = K.fused_minscan.launches, KB.batched_minscan.launches
+        res = search(q, store, K_TOP, on_fault="raise", measure=True)
+        launches = {"fused_minscan": K.fused_minscan.launches - n1,
+                    "batched_minscan": KB.batched_minscan.launches - n2}
+        spans = {e["name"]: e["dur_s"] for e in events() if e["type"] == "span"}
+        passes = [e["attrs"] for e in events() if e["name"] == "cascade.stage2a_pass"]
+        passes1 = [e["attrs"] for e in events() if e["name"] == "cascade.stage1_pass"]
+    bf = search(q, store, K_TOP, method="exact", on_fault="raise", measure=True)
+    check_search(res, bf, store, "16k cascade")
+    assert launches["batched_minscan"] > 0 and launches["fused_minscan"] > 0, launches
+    # the returned values against float64 on the host
+    for sid, v in zip(res.ids.tolist(), res.values.tolist()):
+        s = sets[sid]
+        scale = float(np.linalg.norm(q, axis=1).max() + np.linalg.norm(s, axis=1).max())
+        h = hd64(q, s, False)
+        assert abs(v - h) <= float(fp_value_margin(D, scale, v)), (sid, v, h)
+    warm = search(q, store, K_TOP, on_fault="raise", measure=True)
+    check_search(warm, bf, store, "16k cascade, second run")
+    # Kernel 2 at the shapes the search gives it: a third run, uncounted,
+    # with every wrapper call held against the plain version.
+    scans = []
+    with uncounted(), checked_scans(scans):
+        held = search(q, store, K_TOP, on_fault="raise")
+    check_search(held, bf, store, "16k cascade, kernel 2 held to its plain version")
+    assert len(scans) == launches["batched_minscan"], (len(scans), launches)
+    assert {r["form"] for r in scans} == set(SCAN_FORMS.values()), scans
+    assert sum(r["form"].startswith("stage 1") for r in scans) == 2 * len(passes1), (scans, passes1)
+    runs["corpus"] = {
+        **info, "k": K_TOP, "ids": res.ids.tolist(), "values": res.values.tolist(),
+        "cascade_s": res.meta.elapsed_s, "cascade_warm_s": warm.meta.elapsed_s,
+        "brute_force_s": bf.meta.elapsed_s,
+        "stage_s": {k: spans.get(f"cascade.{k}") for k in ("stage0", "stage1", "stage2a", "stage2b")},
+        "stats": {k: v for k, v in res.stats.items() if not isinstance(v, (list, dict))},
+        "stage1_passes": passes1, "stage1_eigh_s": stage1_eigh_s(passes1),
+        "stage2a_passes": passes, "launches": launches,
+        "kernel2_held_to_plain": scans,
+    }
+    del bf, warm, held
+
+    sets, small, q, info = corpus_store(seed + 1, N_CORPUS_SMALL)
+    checks = []
+    for label, kw, bf_kw in (
+        ("directed", dict(variant="directed"), dict(variant="directed")),
+        ("sequential", dict(stage2="sequential"), {}),
+        ("anytime eps=0", dict(mode="anytime", epsilon=0.0), {}),
+    ):
+        r = search(q, small, K_TOP, on_fault="raise", measure=True, **kw)
+        b = search(q, small, K_TOP, method="exact", on_fault="raise", measure=True, **bf_kw)
+        check_search(r, b, small, label)
+        checks.append({"check": label, "ids": r.ids.tolist(), "cascade_s": r.meta.elapsed_s,
+                       "brute_force_s": b.meta.elapsed_s, "exact_refines": r.stats["exact_refines"]})
+    runs["small_corpus"] = {**info, "checks": checks}
+    return {"runs": runs, "store": store, "q": q, "passes": passes,
+            "scan_err": max(r["max_abs_err"] for r in scans)}
+
+
+def phase_times_batched(corpus: dict, env: dict) -> list[dict]:
+    """Kernel 2 timed on the full cap-256 bucket (ungated) and on the
+    largest stage-2a pass the search made (real lanes computed, pow2 padding
+    lanes gated, as the search ran it)."""
+    import torch
+
+    store, q = corpus["store"], corpus["q"]
+    q = torch.from_numpy(q).to(DEVICE)
+    bucket = store.packed_buckets()[256]
+    rows = [time_bucket("full cap-256 bucket, ungated", q, bucket.points, bucket.valid, None, None, env)]
+    if corpus["passes"]:
+        p = max(corpus["passes"], key=lambda a: a["lanes"] * a["capacity"])
+        b = store.packed_buckets()[p["capacity"]]
+        take = torch.arange(p["batch"], device=DEVICE) % p["lanes"]
+        lb = torch.where(torch.arange(p["batch"], device=DEVICE) < p["lanes"], 0.0, torch.inf)
+        cut = torch.ones(p["batch"], device=DEVICE)
+        rows.append(time_bucket(f"stage-2a pass (cap {p['capacity']}, {p['lanes']} lanes, batch {p['batch']})",
+                                q, b.points[take], b.valid[take], lb, cut, env))
+    torch.cuda.empty_cache()
+    emit({"phase": "times_batched", "rows": rows})
+    return rows
 
 
 def phase_exact(seed: int):
@@ -444,6 +856,15 @@ def phase_times(seed: int, env: dict) -> list[dict]:
     return rows
 
 
+def kernel_entry(name, route, source, replaces, launches, max_err, rows) -> dict:
+    main_row = rows[0]
+    return {"name": name, "route": route, "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": max([max_err] + [r["max_abs_err"] for r in rows]),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"], "library_ms": main_row["library_ms"],
+            "shape": main_row["shape"], "shapes": rows}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -454,13 +875,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    from repro_torch.kernels.hausdorff import batched as KB
     from repro_torch.kernels.hausdorff import hausdorff as K
 
+    t_start = time.perf_counter()
     env = phase_env()
     phase_build()
     max_err = phase_kernel_vs_plain(args.seed)
+    max_err2 = phase_batched_vs_plain(args.seed)
 
-    K.fused_minscan.launches = 0
+    # Main path 1: the pairwise front door (exact, ProHD, variants).
+    K.fused_minscan.launches = KB.batched_minscan.launches = 0
     t0 = time.perf_counter()
     a, b, h, scale, exact_err = phase_exact(args.seed)
     launches_exact = K.fused_minscan.launches
@@ -469,29 +894,36 @@ def main() -> int:
     del a, b
     torch.cuda.empty_cache()
     phase_variants(args.seed)
-    launches = K.fused_minscan.launches
+    pair_launches = K.fused_minscan.launches
     assert launches_exact > 0 and launches_prohd > 0, (launches_exact, launches_prohd)
-    emit({"phase": "main_path", "launches": launches, "exact_launches": launches_exact,
-          "prohd_launches": launches_prohd, "wall_s": time.perf_counter() - t0})
+    assert KB.batched_minscan.launches == 0, KB.batched_minscan.launches
+    emit({"phase": "main_path", "path": "set_distance", "launches": pair_launches,
+          "exact_launches": launches_exact, "prohd_launches": launches_prohd,
+          "wall_s": time.perf_counter() - t0})
+
+    # Main path 2: the corpus search.
+    K.fused_minscan.launches = KB.batched_minscan.launches = 0
+    t0 = time.perf_counter()
+    corpus = phase_search(args.seed)
+    search_launches = {"fused_minscan": K.fused_minscan.launches,
+                       "batched_minscan": KB.batched_minscan.launches}
+    assert search_launches["batched_minscan"] > 0 and search_launches["fused_minscan"] > 0, search_launches
+    emit({"phase": "search", **corpus["runs"]})
+    emit({"phase": "main_path", "path": "search", "launches": search_launches,
+          "wall_s": time.perf_counter() - t0})
 
     rows = phase_times(args.seed, env)
-    main_row = rows[0]
-    emit({"kernels": [{
-        "name": "fused_minscan",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": TPU_KERNEL,
-        "tpu_kernel": "hausdorff.py:_fused_kernel",
-        "launches": launches,
-        "max_abs_err": max([max_err, exact_err] + [r["max_abs_err"] for r in rows]),
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "shape": main_row["shape"],
-        "shapes": rows,
-    }]})
+    rows2 = phase_times_batched(corpus, env)
+    scan_err = corpus["scan_err"]
+    del corpus
+    torch.cuda.empty_cache()
+    emit({"kernels": [
+        kernel_entry("fused_minscan", "cuda", KERNEL_SOURCE, TPU_KERNEL,
+                     pair_launches + search_launches["fused_minscan"], max(max_err, exact_err), rows),
+        kernel_entry("batched_minscan", "cuda", KERNEL2_SOURCE, TPU_KERNEL2,
+                     search_launches["batched_minscan"], max(max_err2, scan_err), rows2),
+    ]})
+    emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
     print(smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -12,10 +12,14 @@ Module layout mirrors ``repro`` so each counterpart is found by path::
     core/prohd.py          Alg. 3
     core/variants.py       partial / chamfer reductions
     core/fp_margin.py      the pinned fp32 margins
-    kernels/hausdorff/     the hand-written fused min-d² scan (CUDA C++)
-    hd/                    the ``set_distance`` front door
-    data/pointclouds.py    the paper's synthetic clouds
-    interop.py             reference configs and numpy arrays → port objects
+    core/masked.py         masked exact HD and ProHD on padded clouds, over lanes
+    kernels/hausdorff/     the hand-written scans (CUDA C++): the fused
+                           min-d² scan and the batched bucket scan
+    hd/                    the ``set_distance`` and ``search`` front doors
+    index/                 ``SetStore`` and the certified cascade search
+    obs/, reliability/     spans and metrics; typed faults and injection
+    data/pointclouds.py    the paper's synthetic clouds and the corpus
+    interop.py             reference configs, arrays and stores → port objects
 
 Device rule: entry points run on the card unless the caller asks for the
 CPU (``device="cpu"`` or CPU tensors); see :mod:`repro_torch.device`.

@@ -10,12 +10,17 @@ Both draw from a ``torch.Generator`` and make the data on the generator's
 device, so a seeded generator on ``cuda`` makes a 1 GiB cloud on the card
 without a host copy.  The numbers differ from ``jax.random``'s for the same
 seed; tests feed both packages the same numpy arrays instead.
+
+``clustered_sets`` is the retrieval corpus: host-side numpy, drawn from
+``np.random.RandomState(seed)`` exactly as the reference draws after its
+seed line, so one int seed gives both packages the same sets bit for bit.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["random_clouds", "gaussian_mixture_pca", "make_generator"]
+__all__ = ["random_clouds", "gaussian_mixture_pca", "make_generator", "clustered_sets"]
 
 
 def make_generator(seed: int, device="cuda") -> torch.Generator:
@@ -56,3 +61,33 @@ def gaussian_mixture_pca(
     a = torch.randn((n_a, d), generator=gen, device=dev).mul_(scales).add_(centers_a[ca])
     b = torch.randn((n_b, d), generator=gen, device=dev).mul_(scales).add_(centers_b[cb])
     return a.to(dtype), b.to(dtype)
+
+
+def clustered_sets(
+    seed: int,
+    n_sets: int,
+    d: int,
+    *,
+    sizes: tuple[int, ...] = (64, 128, 256),
+    n_clusters: int = 32,
+    spread: float = 10.0,
+    sigma: float = 0.5,
+):
+    """Separated-clusters corpus: ``n_sets`` ragged point sets for retrieval.
+
+    Each set is a Gaussian blob (σ = ``sigma``) around one of ``n_clusters``
+    centers drawn N(0, spread²) per coordinate, with its size drawn from
+    ``sizes``.  Returns ``(sets, labels)``: a list of (n_i, d) float32 numpy
+    arrays and an (n_sets,) int array of cluster assignments.  The reference
+    derives ``seed`` from a ``jax.random`` key; from there the draws are
+    the same.
+    """
+    rng = np.random.RandomState(seed)
+    centers = rng.randn(n_clusters, d).astype(np.float32) * spread
+    labels = rng.randint(0, n_clusters, size=n_sets)
+    sets = []
+    for i in range(n_sets):
+        n = int(rng.choice(sizes))
+        pts = centers[labels[i]] + rng.randn(n, d).astype(np.float32) * sigma
+        sets.append(pts)
+    return sets, labels

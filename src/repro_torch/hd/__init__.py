@@ -5,8 +5,10 @@
     res = set_distance(a, b)                       # variant/method/backend dispatch
     res.value, res.lower, res.upper, res.stats     # uniform HDResult
 
+    res = search(query, store, k=10)               # corpus top-k (repro_torch.index)
+
 Layout (as in ``repro.hd``): registry, resolver, config, result, methods,
-engine.  Corpus search (``repro.hd.search``) is not ported yet.
+engine, search.  ``search_batch`` is not ported yet.
 """
 from repro_torch.hd.config import HDConfig
 from repro_torch.hd.engine import HDEngine, set_distance
@@ -22,9 +24,11 @@ from repro_torch.hd.registry import (
 )
 from repro_torch.hd.resolver import TILE_THRESHOLD, resolve_backend, resolve_block_sizes
 from repro_torch.hd.result import HDMeta, HDResult
+from repro_torch.hd.search import search
 
 __all__ = [
     "set_distance",
+    "search",
     "HDEngine",
     "HDConfig",
     "HDResult",

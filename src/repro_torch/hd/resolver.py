@@ -17,13 +17,24 @@ Where this differs from the reference:
   * On ``cpu`` the reference's rules hold: ``dense`` below the tile
     threshold, the plain fused scan (``tiled``) above it, blocks
     4096/4096 at D ≤ 64 and 2048/2048 above.
+  * The corpus search's bucket passes (:func:`resolve_masked_backend`) take
+    the batched bucket kernel on ``cuda`` and its plain version on ``cpu``;
+    the device kind is the store's and the query's, not a global default.
+    The TPU's 512/512 block rule is not copied: kernel 2's tile is fixed,
+    and blocks only reach the plain per-pair backends.
 """
 from __future__ import annotations
 
 from repro_torch.hd import registry
 from repro_torch.kernels.hausdorff import hausdorff as _kernel
 
-__all__ = ["TILE_THRESHOLD", "resolve_backend", "resolve_block_sizes"]
+__all__ = [
+    "TILE_THRESHOLD",
+    "resolve_backend",
+    "resolve_block_sizes",
+    "resolve_masked_backend",
+    "resolve_anytime_refine_cap",
+]
 
 # Below this many rows on a side, one dense GEMM beats the scan machinery
 # on the CPU.
@@ -76,3 +87,21 @@ def resolve_block_sizes(
     if d <= LOW_D:
         return 4096, 4096
     return 2048, 2048
+
+
+def resolve_masked_backend(device_kind: str = "cpu") -> str:
+    """The ``core.masked.EXACT_MASKED_BACKENDS`` name for the cascade's
+    bucket passes (stages 1 and 2a): the batched bucket kernel on the card
+    (``batched_cuda``), its plain version on the CPU (``batched_mirror``)."""
+    if device_kind == "cuda":
+        return "batched_cuda"
+    return "batched_mirror"
+
+
+def resolve_anytime_refine_cap(n_sets: int, budget: int | None) -> int:
+    """Cap on raw exact refines the anytime drain may spend: ``n_sets``
+    when unbounded (a drain that refines every candidate has resolved the
+    frontier), else the budget clamped into [0, n_sets]."""
+    if budget is None:
+        return int(n_sets)
+    return max(0, min(int(budget), int(n_sets)))

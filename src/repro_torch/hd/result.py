@@ -20,8 +20,17 @@ class HDMeta:
     block_a: int
     block_b: int
     # Wall-clock seconds of the dispatched call, device synchronised; only
-    # set by set_distance(measure=True).
+    # set by set_distance(measure=True) and search(measure=True).
     elapsed_s: float | None = None
+    # ``degraded=True`` marks a search result whose certificate a deadline
+    # or an absorbed fault weakened (its intervals still contain the truth);
+    # ``stage_reached`` names the deepest cascade stage that contributed,
+    # or "complete".  Pairwise dispatches never degrade.
+    degraded: bool = False
+    stage_reached: str = "complete"
+    # "exact" (every pairwise dispatch, and the search's brute-force-equal
+    # mode) or "anytime" (the search's ε/budget knob).
+    mode: str = "exact"
 
 
 @dataclasses.dataclass(frozen=True)

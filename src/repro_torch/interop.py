@@ -3,9 +3,9 @@
 ProHD has no weights: its state is the configuration and the data.  This
 module turns the fields of a reference ``HDConfig`` / ``ProHDConfig``,
 passed as a plain dict (``dataclasses.asdict``), and numpy arrays (clouds,
-masks, projections, directions) into the port's objects, so a test can
-build both packages' inputs from one dict and one set of arrays.  It
-imports nothing of the reference package.
+masks, projections, directions, a corpus) into the port's objects, so a
+test can build both packages' inputs from one dict and one set of arrays.
+It imports nothing of the reference package.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ import torch
 from repro_torch.core.prohd import ProHDConfig
 from repro_torch.device import as_tensor
 from repro_torch.hd.config import HDConfig
+from repro_torch.index.store import SetStore
 
 __all__ = [
     "BACKEND_NAMES",
@@ -28,10 +29,12 @@ __all__ = [
     "prohd_config_from_dict",
     "cloud",
     "mask",
+    "store_from_reference",
 ]
 
-# Reference name → port name, where they differ.
-BACKEND_NAMES = {"fused_pallas": "fused_cuda"}
+# Reference name → port name, where they differ (front-door backends and
+# masked bucket backends).
+BACKEND_NAMES = {"fused_pallas": "fused_cuda", "batched_pallas": "batched_cuda"}
 SUBSET_BACKEND_NAMES = {"pallas": "cuda"}
 # Reference fields with no counterpart in the port: ``interpret`` (no
 # interpret mode for a CUDA kernel) and the knobs of the sampling and
@@ -87,3 +90,16 @@ def cloud(x: np.ndarray, device=None) -> torch.Tensor:
 def mask(v: np.ndarray | None, device=None) -> torch.Tensor | None:
     """A numpy validity mask as a bool tensor (None stays None)."""
     return None if v is None else as_tensor(np.asarray(v, dtype=bool), device)
+
+
+def store_from_reference(directions: np.ndarray, sets, *, min_bucket: int = 8,
+                         device=None) -> SetStore:
+    """A port ``SetStore`` holding the same corpus as a reference store:
+    its direction bank (``np.asarray(ref_store.directions)``, which
+    ``jax.random`` drew and the port cannot redraw) and its raw sets in id
+    order (numpy), added in one ``add_many``."""
+    store = SetStore(dim=int(np.asarray(directions).shape[0]),
+                     directions=np.asarray(directions, np.float32),
+                     min_bucket=min_bucket, device=device)
+    store.add_many([np.asarray(s, np.float32) for s in sets])
+    return store

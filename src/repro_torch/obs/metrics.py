@@ -1,0 +1,179 @@
+"""Typed metrics — counters and log-spaced-bucket histograms.
+
+The port's own copy of the part of ``repro/obs/metrics.py`` that the
+cascade, the store and span finishing use (same names and buckets).  The
+reference's gauges and Prometheus export come with ``serve/``.
+
+The registry is the single source of truth the ad-hoc ``stats`` dicts
+(cascade / multiquery / engine) and the training ``Heartbeat`` fold into:
+instrumented sites update named instruments here when tracing is enabled,
+and every finished span auto-observes into ``span.<name>.s``.
+
+Zero dependencies, thread-safe (one lock per instrument — contention is
+nil at the rates the repro emits); :meth:`MetricsRegistry.snapshot` reads
+it as a plain nested dict for tests/JSON.
+
+Histogram buckets are **fixed log-spaced** boundaries, 3 per decade from
+1e-6 to 1e3 (1·10ᵏ, 2.15·10ᵏ, 4.64·10ᵏ) — 28 buckets spanning
+microseconds to ~17 minutes, so second-denominated latencies from a
+no-op span to a full snapshot restore land with ~2× relative resolution
+and every histogram in the process is mergeable with every other.
+"""
+from __future__ import annotations
+
+import threading
+from bisect import bisect_left
+
+__all__ = ["Counter", "Histogram", "MetricsRegistry", "registry", "DEFAULT_BUCKETS"]
+
+# 3 buckets/decade, 1e-6 .. 1e3: [1e-6, 2.154e-6, 4.642e-6, 1e-5, ...]
+DEFAULT_BUCKETS: tuple[float, ...] = tuple(
+    round(10.0 ** (e / 3.0), 12) for e in range(-18, 10)
+)
+
+
+class Counter:
+    """Monotone accumulator (float — byte totals ride the same type)."""
+
+    __slots__ = ("name", "unit", "_value", "_lock")
+
+    def __init__(self, name: str, unit: str = ""):
+        self.name = name
+        self.unit = unit
+        self._value = 0.0
+        self._lock = threading.Lock()
+
+    def inc(self, amount: float = 1.0) -> None:
+        if amount < 0:
+            raise ValueError(f"counter {self.name}: negative increment {amount}")
+        with self._lock:
+            self._value += amount
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+    def snapshot(self) -> dict:
+        return {"type": "counter", "unit": self.unit, "value": self._value}
+
+
+class Histogram:
+    """Fixed-boundary histogram (log-spaced, see DEFAULT_BUCKETS).
+
+    Counts are per-interval (not cumulative).  ``observe`` is
+    O(log n_buckets).
+    """
+
+    __slots__ = ("name", "unit", "bounds", "_counts", "_sum", "_count", "_min", "_max", "_lock")
+
+    def __init__(self, name: str, unit: str = "", bounds: tuple[float, ...] = DEFAULT_BUCKETS):
+        self.name = name
+        self.unit = unit
+        self.bounds = tuple(bounds)
+        self._counts = [0] * (len(self.bounds) + 1)  # last = +inf overflow
+        self._sum = 0.0
+        self._count = 0
+        self._min = float("inf")
+        self._max = float("-inf")
+        self._lock = threading.Lock()
+
+    def observe(self, value: float) -> None:
+        v = float(value)
+        idx = bisect_left(self.bounds, v)  # bucket upper bounds are inclusive
+        with self._lock:
+            self._counts[idx] += 1
+            self._sum += v
+            self._count += 1
+            if v < self._min:
+                self._min = v
+            if v > self._max:
+                self._max = v
+
+    @property
+    def count(self) -> int:
+        return self._count
+
+    @property
+    def sum(self) -> float:
+        return self._sum
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {
+                "type": "histogram", "unit": self.unit,
+                "count": self._count, "sum": self._sum,
+                "min": self._min if self._count else 0.0,
+                "max": self._max if self._count else 0.0,
+                "buckets": {
+                    **{f"{b:g}": c for b, c in zip(self.bounds, self._counts) if c},
+                    **({"+Inf": self._counts[-1]} if self._counts[-1] else {}),
+                },
+            }
+
+
+class MetricsRegistry:
+    """Get-or-create home for named instruments.
+
+    Re-requesting a name returns the same instrument; requesting an
+    existing name as a different type raises — silent type drift is how
+    dashboards rot."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._instruments: dict[str, object] = {}
+
+    def _get(self, name: str, cls, **kwargs):
+        with self._lock:
+            inst = self._instruments.get(name)
+            if inst is None:
+                inst = cls(name, **kwargs)
+                self._instruments[name] = inst
+            elif not isinstance(inst, cls):
+                raise TypeError(
+                    f"metric {name!r} already registered as "
+                    f"{type(inst).__name__}, requested {cls.__name__}"
+                )
+            return inst
+
+    def counter(self, name: str, unit: str = "") -> Counter:
+        return self._get(name, Counter, unit=unit)
+
+    def histogram(self, name: str, unit: str = "", bounds: tuple[float, ...] = DEFAULT_BUCKETS) -> Histogram:
+        return self._get(name, Histogram, unit=unit, bounds=bounds)
+
+    def snapshot(self) -> dict:
+        """``{name: instrument.snapshot()}`` — stable (sorted) order."""
+        with self._lock:
+            items = sorted(self._instruments.items())
+        return {name: inst.snapshot() for name, inst in items}
+
+    def reset(self) -> None:
+        """Drop every instrument (tests/benches isolate through this)."""
+        with self._lock:
+            self._instruments.clear()
+
+
+_REGISTRY = MetricsRegistry()
+
+
+def registry() -> MetricsRegistry:
+    """The process-default registry (what spans and instrumented sites use)."""
+    return _REGISTRY
+
+
+def record_stats(prefix: str, stats: dict) -> None:
+    """Fold one request's ``stats`` dict into the default registry.
+
+    Every numeric value becomes an observation in histogram
+    ``<prefix>.<key>`` — per-request distributions (prune_fraction,
+    exact_refines, flush batch sizes) with zero per-site wiring; this is
+    how the historical ad-hoc stats dicts surface as metrics.  No-op when
+    tracing is disabled (the sites' single-flag-check discipline)."""
+    from repro_torch.obs import trace as _trace
+
+    if not _trace.enabled():
+        return
+    for key, v in stats.items():
+        if isinstance(v, bool) or not isinstance(v, (int, float)):
+            continue
+        _REGISTRY.histogram(f"{prefix}.{key}").observe(float(v))

@@ -1,0 +1,314 @@
+"""Spans, request ids, and the event collector — the tracing half of
+``repro_torch.obs``.
+
+The port's own copy of ``repro/obs/trace.py``: the same span and event
+names, record schema and API.  Left out: the lazy XLA profiler bridge
+(``enable(xla=True)`` opening a ``jax.profiler.TraceAnnotation`` per span),
+which has no counterpart here yet.
+
+Design constraints (docs/api.md "Observability contract"):
+
+- **Disabled by default, no-op fast path.**  Every instrumented site costs
+  one module-global flag check when tracing is off: :func:`span` /
+  :func:`event` return immediately (``span`` hands back a shared inert
+  singleton, so even the ``with`` protocol touches no state).  The
+  ``benchmarks --only obs`` lane measures this and ``scripts/check.sh``
+  gates it (< 5% on the 5k-set cascade bench).
+- **Monotonic-clock timing.**  Span durations come from
+  ``time.monotonic()``; the wall-clock ``t_start`` stamp
+  (``time.time()``) is for correlation only and never enters a duration.
+- **Correlation.**  Every span carries a request id ``rid``.  The ambient
+  (rid, parent span id) pair lives in a :mod:`contextvars` context
+  variable, so nesting is automatic within a thread/task.  A span opened
+  with no ambient context mints a fresh rid — a bare ``search()`` call
+  still yields a correlated tree.  (The reference's ``start_span`` /
+  ``bind`` for regions that cross a thread hop come with ``serve/``.)
+- **One source of truth.**  On exit every span also feeds the default
+  :class:`~repro_torch.obs.metrics.MetricsRegistry`: histogram
+  ``span.<name>.s`` observes the duration and counter
+  ``span.<name>.total`` the completion — the per-stage latency
+  distributions exist without a single extra instrumentation site.
+
+Event records (the JSONL export schema of the reference's
+``obs/export.validate_events``):
+
+    {"type": "span",  "name": str, "rid": str, "span_id": int,
+     "parent_id": int|null, "t_start": float, "dur_s": float,
+     "status": "ok"|"error", "attrs": {...}, ["error": {chain}]}
+    {"type": "event", "name": str, "rid": str|null, "span_id": int|null,
+     "t": float, "error": bool, "attrs": {...}}
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import itertools
+import json
+import threading
+import time
+from typing import Any, NamedTuple
+
+__all__ = [
+    "enable",
+    "disable",
+    "enabled",
+    "capture",
+    "span",
+    "event",
+    "events",
+    "drain",
+    "exception_chain",
+]
+
+
+class _Frame(NamedTuple):
+    rid: str
+    span_id: int | None
+
+
+_CTX: contextvars.ContextVar[_Frame | None] = contextvars.ContextVar(
+    "repro_obs_frame", default=None
+)
+
+_RIDS = itertools.count(1)
+_SPAN_IDS = itertools.count(1)
+
+
+class _State:
+    """Process-global tracer state.  ``enabled`` is read unlocked on the
+    hot path (a bool flip is atomic under the GIL and tests/benches flip
+    it outside the measured region); everything else is lock-guarded."""
+
+    def __init__(self):
+        self.enabled = False
+        self.lock = threading.Lock()
+        self.events: list[dict] = []
+        self.jsonl = None  # open file handle, or None
+
+
+_STATE = _State()
+
+
+def enabled() -> bool:
+    """Is tracing on?  THE guard instrumented sites check before doing any
+    attribute assembly beyond the bare :func:`span` call."""
+    return _STATE.enabled
+
+
+def enable(*, jsonl=None) -> None:
+    """Turn tracing on.
+
+    jsonl — optional path; every event is additionally appended to it as
+            one JSON line at emit time (the durable export).  The
+            in-memory collector fills either way; :func:`drain` empties it.
+    """
+    with _STATE.lock:
+        if _STATE.jsonl is not None:
+            _STATE.jsonl.close()
+        _STATE.jsonl = open(jsonl, "a") if jsonl is not None else None
+        _STATE.enabled = True
+
+
+def disable() -> None:
+    """Turn tracing off (the default state).  In-memory events are kept
+    until :func:`drain`; the JSONL handle is closed."""
+    with _STATE.lock:
+        _STATE.enabled = False
+        if _STATE.jsonl is not None:
+            _STATE.jsonl.close()
+            _STATE.jsonl = None
+
+
+def events() -> list[dict]:
+    """Copy of the in-memory event buffer (emit order)."""
+    with _STATE.lock:
+        return list(_STATE.events)
+
+
+def drain() -> list[dict]:
+    """Return AND clear the in-memory event buffer."""
+    with _STATE.lock:
+        out = _STATE.events
+        _STATE.events = []
+        return out
+
+
+@contextlib.contextmanager
+def capture(*, jsonl=None):
+    """Test/bench-scoped tracing: enable, yield the live event list getter,
+    disable and restore on exit.  Drains pre-existing events so the block
+    sees only its own."""
+    prior_enabled = _STATE.enabled
+    drain()
+    enable(jsonl=jsonl)
+    try:
+        yield events
+    finally:
+        disable()
+        if prior_enabled:
+            enable()
+
+
+def _new_rid() -> str:
+    """Mint a fresh request id (process-unique, monotone)."""
+    return f"r{next(_RIDS):08d}"
+
+
+def exception_chain(e: BaseException) -> list[dict]:
+    """Structured exception chain, outermost first.
+
+    Follows ``__cause__`` (explicit ``raise ... from ...``), falling back
+    to a non-suppressed ``__context__`` — the same walk ``traceback``
+    renders.  Each link is ``{"type", "message"}``; the list replaces the
+    historical one-string flattening in ``stats['fault']`` so a wrapped
+    root cause (e.g. a device error re-raised as a typed TransientFault)
+    survives into logs and span events.  Cycle-guarded."""
+    chain: list[dict] = []
+    seen: set[int] = set()
+    cur: BaseException | None = e
+    while cur is not None and id(cur) not in seen:
+        seen.add(id(cur))
+        chain.append({"type": type(cur).__name__, "message": str(cur)})
+        cur = cur.__cause__ or (
+            cur.__context__ if not cur.__suppress_context__ else None
+        )
+    return chain
+
+
+def _jsonable(v: Any) -> Any:
+    """Best-effort conversion of attr values to JSON-clean types (numpy
+    scalars/arrays show up naturally at call sites)."""
+    if v is None or isinstance(v, (bool, int, float, str)):
+        return v
+    if isinstance(v, (list, tuple)):
+        return [_jsonable(x) for x in v]
+    if isinstance(v, dict):
+        return {str(k): _jsonable(x) for k, x in v.items()}
+    for cast in (int, float):
+        try:
+            # numpy integer/floating scalars; jax scalars
+            if hasattr(v, "item"):
+                return _jsonable(v.item())
+            return cast(v)
+        except (TypeError, ValueError):
+            continue
+    return str(v)
+
+
+def _emit(record: dict) -> None:
+    with _STATE.lock:
+        if not _STATE.enabled:
+            return
+        _STATE.events.append(record)
+        if _STATE.jsonl is not None:
+            _STATE.jsonl.write(json.dumps(record) + "\n")
+            _STATE.jsonl.flush()
+
+
+class Span:
+    """One timed, attributed, correlated region; opened by :func:`span`."""
+
+    __slots__ = (
+        "name", "attrs", "rid", "span_id", "parent_id",
+        "_t0", "_t_start", "_token", "_done", "status", "error",
+    )
+
+    def __init__(self, name: str, rid: str | None, attrs: dict):
+        frame = _CTX.get()
+        self.name = name
+        self.attrs = attrs
+        self.rid = rid or (frame.rid if frame is not None else _new_rid())
+        self.span_id = next(_SPAN_IDS)
+        self.parent_id = frame.span_id if frame is not None else None
+        self._token = None
+        self._done = False
+        self.status = "ok"
+        self.error = None
+        self._t_start = time.time()
+        self._t0 = time.monotonic()
+
+    def set(self, **attrs) -> "Span":
+        """Attach/overwrite attributes mid-span."""
+        self.attrs.update(attrs)
+        return self
+
+    def __enter__(self) -> "Span":
+        self._token = _CTX.set(_Frame(self.rid, self.span_id))
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if self._token is not None:
+            _CTX.reset(self._token)
+            self._token = None
+        self.finish(exc)
+        return False
+
+    def finish(self, exc: BaseException | None = None) -> None:
+        dur = time.monotonic() - self._t0
+        if self._done:
+            return
+        self._done = True
+        if exc is not None:
+            self.status = "error"
+            self.error = exception_chain(exc)
+        record = {
+            "type": "span", "name": self.name, "rid": self.rid,
+            "span_id": self.span_id, "parent_id": self.parent_id,
+            "t_start": self._t_start, "dur_s": dur,
+            "status": self.status, "attrs": _jsonable(self.attrs),
+        }
+        if self.error is not None:
+            record["error"] = self.error
+        _emit(record)
+        # fold into the metrics registry: per-span-name latency histogram
+        # + completion counter — one source of truth, zero extra sites
+        from repro_torch.obs import metrics as _metrics
+
+        reg = _metrics.registry()
+        reg.histogram(f"span.{self.name}.s", unit="s").observe(dur)
+        reg.counter(f"span.{self.name}.total").inc()
+
+
+class _NoopSpan:
+    """Shared inert stand-in when tracing is off: every method is a no-op
+    and carries no state, so one singleton serves every site re-entrantly."""
+
+    __slots__ = ()
+    name = rid = None
+    span_id = parent_id = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def set(self, **attrs):
+        return self
+
+    def finish(self, exc=None) -> None:
+        return None
+
+
+_NOOP = _NoopSpan()
+
+
+def span(name: str, *, rid: str | None = None, **attrs):
+    """Open a span (context manager).  THE instrumentation entry point:
+    when tracing is off this is one flag check and a shared inert object."""
+    if not _STATE.enabled:
+        return _NOOP
+    return Span(name, rid, attrs)
+
+
+def event(name: str, *, error: bool = False, rid: str | None = None, **attrs) -> None:
+    """Free-standing point event; correlates to the ambient span if any."""
+    if not _STATE.enabled:
+        return
+    frame = _CTX.get()
+    _emit({
+        "type": "event", "name": name,
+        "rid": rid or (frame.rid if frame is not None else None),
+        "span_id": frame.span_id if frame is not None else None,
+        "t": time.time(), "error": bool(error), "attrs": _jsonable(attrs),
+    })
