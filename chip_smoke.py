@@ -44,11 +44,36 @@ Kernel 2 and the corpus search:
   9. CUDA-event times of kernel 2 on the full cap-256 bucket and on the
      search's largest stage-2a pass, with its bound, its plain version and
      torch.cdist + amin as a yardstick.
+Kernel 3, search_batch and the serving layer:
+  3c. the multi-query bucket scan against its plain version on CUDA
+     tensors (Q 1-16, n_q 1-200, caps 64-256 with ragged validity, D 3-256,
+     per-(query, set) gates with a NaN bound, a -inf cut, fully gated rows,
+     an all-invalid query, the reference's failing tiny shapes), per min-d²
+     entry within 2·(D+2)·eps32·scale²; gated pairs +inf, gated vs ungated
+     bitwise, each pair bitwise equal to kernel 2 with that query;
+  10. search_batch over phase 8's store: 16 requests over 4 unique queries
+     (k 10 and 5), each bitwise equal to its brute force, kernel 3 serving
+     stage 2a, then one more (uncounted) run with every kernel-3 wrapper
+     call held entry by entry against the plain version;
+  10b. at phase 8's 2,048 sets, search_batch directed and anytime ε = 0,
+     each bitwise equal to brute force;
+  11. served: a QueryEngine over a ProHDService around phase 8's store
+     answers phase 10's 16 requests in one flush, bitwise equal to phase
+     10; ProHDService.submit serves 8 Random-Cloud pairs at 16,384 ×
+     {16,384 … 4,096} × 256 through kernel 2, certified against the exact
+     set_distance; then the same pairs flushed once more (uncounted, the
+     same answers) with every kernel-2 wrapper call held entry by entry
+     against the plain version at the served shapes;
+  12. CUDA-event times of kernel 3 at Q = 16 on the full cap-256 bucket
+     (beside 16 launches of kernel 2 on the same work) and on search_batch's
+     largest stage-2a pass, with its bound, its plain version (at Q = 2 on
+     the full bucket) and Q calls of torch.cdist + amin as a yardstick.
 
-Each main path (phases 4-6: set_distance; phase 8: search) runs with both
-kernels' launch counters set to 0 just before it and read just after;
-launches made only to compare a kernel with its plain version are taken
-back out.  Prints JSON lines; the last line is {"ok": true, "device": {...}}.
+Each main path (phases 4-6: set_distance; phase 8: search; phases 10 and
+10b: search_batch; phase 11: the served paths) runs with the kernels'
+launch counters set to 0 just before it and read just after; launches made
+only to compare a kernel with its plain version are taken back out.
+Prints JSON lines; the last line is {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -69,6 +94,8 @@ KERNEL_SOURCE = "src/repro_torch/kernels/hausdorff/csrc/fused_minscan.cu"
 TPU_KERNEL = "src/repro/kernels/hausdorff/hausdorff.py:89"
 KERNEL2_SOURCE = "src/repro_torch/kernels/hausdorff/csrc/batched_minscan.cu"
 TPU_KERNEL2 = "src/repro/kernels/hausdorff/batched.py:74"
+KERNEL3_SOURCE = "src/repro_torch/kernels/hausdorff/csrc/multiquery_minscan.cu"
+TPU_KERNEL3 = "src/repro/kernels/hausdorff/batched.py:378"
 # H100 SXM HBM3 rate from NVIDIA's data sheet (bytes/s).
 HBM_BYTES_PER_S = 3.35e12
 # FP32 lanes per SM on Hopper; one FMA = 2 FLOPs per lane per clock.
@@ -88,6 +115,14 @@ N_CORPUS_SMALL = 2_048
 CORPUS_SIZES = tuple(range(48, 257, 8))
 N_QUERY = 128
 K_TOP = 10
+# search_batch: each of 4 unique queries asked 4 times; the last request of
+# each asks for the top K_SMALL.
+N_UNIQUE = 4
+N_REQUESTS = 16
+K_SMALL = 5
+# Served pairwise: Random Clouds, a-side size and the b-side sizes (each twice).
+N_PAIR_A = 16_384
+PAIR_B_SIZES = (16_384, 12_288, 9_000, 4_096)
 
 
 def emit(obj) -> None:
@@ -137,11 +172,27 @@ def uncounted():
     from repro_torch.kernels.hausdorff import batched as KB
     from repro_torch.kernels.hausdorff import hausdorff as K
 
-    n1, n2 = K.fused_minscan.launches, KB.batched_minscan.launches
+    n = K.fused_minscan.launches, KB.batched_minscan.launches, KB.multiquery_minscan.launches
     try:
         yield
     finally:
-        K.fused_minscan.launches, KB.batched_minscan.launches = n1, n2
+        K.fused_minscan.launches, KB.batched_minscan.launches, KB.multiquery_minscan.launches = n
+
+
+def counts() -> dict:
+    """The three kernels' launch counters, by kernel name."""
+    from repro_torch.kernels.hausdorff import batched as KB
+    from repro_torch.kernels.hausdorff import hausdorff as K
+
+    return {"fused_minscan": K.fused_minscan.launches, "batched_minscan": KB.batched_minscan.launches,
+            "multiquery_minscan": KB.multiquery_minscan.launches}
+
+
+def zero_counts() -> None:
+    from repro_torch.kernels.hausdorff import batched as KB
+    from repro_torch.kernels.hausdorff import hausdorff as K
+
+    K.fused_minscan.launches = KB.batched_minscan.launches = KB.multiquery_minscan.launches = 0
 
 
 def entry_err(k, p, valid=None) -> float:
@@ -213,7 +264,7 @@ def phase_env():
 
 
 def phase_build():
-    """Build both kernels from the checkout, one nvcc each, started together."""
+    """Build the three kernels from the checkout, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import _build
@@ -221,11 +272,11 @@ def phase_build():
     from repro_torch.kernels.hausdorff import hausdorff as K
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for f in [pool.submit(K.build), pool.submit(KB.build)]:
+    with ThreadPoolExecutor(3) as pool:
+        for f in [pool.submit(K.build), pool.submit(KB.build), pool.submit(KB.build_multiquery)]:
             f.result()
     ptxas = {}
-    for name in ("fused_minscan", "batched_minscan"):
+    for name in ("fused_minscan", "batched_minscan", "multiquery_minscan"):
         logs = sorted(_build.BUILD_DIR.glob(f"{name}-*.log"))
         ptxas[name] = [ln.strip() for ln in logs[-1].read_text().splitlines()
                        if "registers" in ln or "spill" in ln] if logs else []
@@ -406,6 +457,112 @@ def phase_batched_vs_plain(seed: int) -> float:
     return max_err
 
 
+def multiquery_case(gen, n_queries, n_q, n_sets, cap, d, *, n_valid=None):
+    """Random operands for one kernel-3 case: (qs, slab, valid_qs,
+    valid_slab), ragged validity on both sides (``n_valid`` pins every
+    set's valid prefix, for the reference's tiny shapes)."""
+    import torch
+
+    qs = torch.randn(n_queries, n_q, d, generator=gen, device=DEVICE)
+    slab = torch.randn(n_sets, cap, d, generator=gen, device=DEVICE) * 1.5 + 0.25
+    valid_qs = torch.rand(n_queries, n_q, generator=gen, device=DEVICE) > 0.2
+    valid_qs[:, 0] = True
+    if n_valid is None:
+        lens = torch.randint(1, cap + 1, (n_sets,), generator=gen, device=DEVICE)
+    else:
+        lens = torch.full((n_sets,), n_valid, device=DEVICE)
+    valid_slab = torch.arange(cap, device=DEVICE)[None, :] < lens[:, None]
+    valid_slab[min(1, n_sets - 1)] = False
+    return qs, slab, valid_qs, valid_slab
+
+
+def multiquery_gate(gen, n_queries, n_sets):
+    """(lb, cut) for a kernel-3 case: about a third of the pairs gated, a
+    NaN bound at (0, 2), and with Q > 1 a −inf cut gating all of query 1."""
+    import torch
+
+    lb = torch.rand(n_queries, n_sets, generator=gen, device=DEVICE)
+    cut = torch.full((n_queries, n_sets), 0.66, device=DEVICE)
+    lb[:, 0] = 0.0
+    lb[0, min(2, n_sets - 1)] = torch.nan
+    if n_queries > 1:
+        cut[1] = -torch.inf
+    return lb, cut
+
+
+def lanes_vs_kernel2(qs, slab, valid_qs, valid_slab, lb, cut, ka, kb) -> bool:
+    """Is every (query, set) pair of kernel 3's output bitwise kernel 2's
+    with that query against the slab (same poisoned norms, same gate)?"""
+    import torch
+
+    from repro_torch.kernels.hausdorff import batched as KB
+
+    qp, q2 = KB._poison(qs, valid_qs)
+    sp, b2 = KB._poison(slab, valid_slab)
+    n_sets = sp.shape[0]
+    same = True
+    for i in range(qp.shape[0]):
+        m_a = torch.full((n_sets, qp.shape[1]), torch.inf, device=DEVICE)
+        m_b = torch.full((n_sets, sp.shape[1]), torch.inf, device=DEVICE)
+        KB.batched_minscan(qp[i].expand(n_sets, *qp[i].shape), q2[i].expand(n_sets, q2.shape[1]), sp, b2,
+                           m_a, m_b, lb=None if lb is None else lb[i].contiguous(),
+                           cut=None if cut is None else cut[i].contiguous())
+        same &= bool(torch.equal(m_a, ka[i]) and torch.equal(m_b, kb[i]))
+    return same
+
+
+def phase_multiquery_vs_plain(seed: int) -> float:
+    """Kernel 3 against its plain version, its gate semantics, and each pair
+    against kernel 2 with that query (bitwise, same norms)."""
+    import torch
+
+    from repro_torch.core.fp_margin import sqdist_tolerance
+    from repro_torch.data.pointclouds import make_generator
+    from repro_torch.kernels.hausdorff import batched as KB
+
+    gen = make_generator(seed + 20, DEVICE)
+    # (label, Q, n_q, S, cap, D, valid rows per set or None for ragged)
+    cases = [
+        ("one query, one row, cap 64, D 3", 1, 1, 24, 64, 3, None),
+        ("Q 3, n_q 37, cap 128, D 17", 3, 37, 40, 128, 17, None),
+        ("Q 16, n_q 128, cap 256, D 256", 16, 128, 48, 256, 256, None),
+        ("Q 3, n_q 200 (two tiles), cap 256, D 256", 3, 200, 33, 256, 256, None),
+        ("Q 16, n_q 37, cap 64, D 17", 16, 37, 20, 64, 17, None),
+        ("Q 1, n_q 128, cap 128, D 256", 1, 128, 30, 128, 256, None),
+        ("reference failing shape (n_q 1, n_b 1, D 1)", 3, 1, 6, 8, 1, 1),
+        ("reference failing shape (n_q 38, n_b 8, D 17)", 3, 38, 6, 8, 17, 8),
+        ("reference failing shape (n_q 1, n_b 2, D 2)", 3, 1, 6, 8, 2, 2),
+    ]
+    max_err = 0.0
+    rows = []
+    with uncounted():
+        for label, nqs, n_q, n_sets, cap, d, n_valid in cases:
+            qs, slab, vq, vs = multiquery_case(gen, nqs, n_q, n_sets, cap, d, n_valid=n_valid)
+            if nqs >= 3:
+                vq[nqs - 1] = False  # an all-invalid query
+            lb, cut = multiquery_gate(gen, nqs, n_sets)
+            gated = ~(lb <= cut)
+            scale = max(float(torch.linalg.vector_norm(qs, dim=-1).max()),
+                        float(torch.linalg.vector_norm(slab, dim=-1).max()))
+            tol = sqdist_tolerance(d, scale)
+            ka, kb = KB.multiquery_min_sqdists(qs, slab, valid_qs=vq, valid_slab=vs, lb=lb, cut=cut)
+            pa, pb = KB.multiquery_min_sqdists_mirror(qs, slab, valid_qs=vq, valid_slab=vs, lb=lb, cut=cut)
+            torch.cuda.synchronize()
+            for t in (ka, kb, pa, pb):
+                assert torch.isinf(t[gated]).all(), (label, "gated pair not +inf")
+            err = max(finite_err(ka, pa), finite_err(kb, pb))
+            assert err <= tol, (label, err, tol)
+            max_err = max(max_err, err)
+            ua, ub = KB.multiquery_min_sqdists(qs, slab, valid_qs=vq, valid_slab=vs)
+            assert torch.equal(ua[~gated], ka[~gated]) and torch.equal(ub[~gated], kb[~gated]), label
+            same = lanes_vs_kernel2(qs, slab, vq, vs, lb, cut, ka, kb)
+            assert same, (label, "kernel 3 pair differs from kernel 2 with the same query")
+            rows.append({"case": label, "shape": [nqs, n_q, n_sets, cap, d], "max_abs_err": err, "tol": tol,
+                         "gated_pairs": int(gated.sum()), "pairs_vs_kernel2_bitwise": same})
+    emit({"phase": "multiquery_vs_plain", "cases": rows, "max_abs_err": max_err})
+    return max_err
+
+
 def bucket_bound(peak: float, n_sets: int, rows: int, n_q: int, cap: int, d: int, gated: bool = False):
     """(bound_ms, bound_by, flops) of a bucket pass over ``n_sets`` computed
     sets holding ``rows`` valid rows in all: the work this data needs is the
@@ -478,7 +635,8 @@ def time_bucket(label, q, slab, valid_slab, lb, cut, env: dict) -> dict:
 
 
 def corpus_store(seed: int, n_sets: int):
-    """The clustered corpus in a SetStore on the card, and the query."""
+    """The clustered corpus in a SetStore on the card, the query, and the
+    sets' cluster labels."""
     import numpy as np
     import torch
 
@@ -486,7 +644,7 @@ def corpus_store(seed: int, n_sets: int):
     from repro_torch.index import SetStore
 
     t0 = time.perf_counter()
-    sets, _ = clustered_sets(seed, n_sets, D, sizes=CORPUS_SIZES, n_clusters=32, spread=10.0, sigma=0.5)
+    sets, labels = clustered_sets(seed, n_sets, D, sizes=CORPUS_SIZES, n_clusters=32, spread=10.0, sigma=0.5)
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     store = SetStore(dim=D, generator=make_generator(seed, "cpu"), device=DEVICE)
@@ -500,7 +658,7 @@ def corpus_store(seed: int, n_sets: int):
     info = {"n_sets": n_sets, "generate_s": gen_s, "store_build_s": build_s,
             "buckets": {str(c): int(b.points.shape[0]) for c, b in sorted(buckets.items())},
             "slab_bytes": int(sum(b.points.numel() * 4 for b in buckets.values()))}
-    return sets, store, q, info
+    return sets, store, q, info, labels
 
 
 def hd64(q, s, directed: bool) -> float:
@@ -521,12 +679,16 @@ SCAN_FORMS = {
 }
 
 
+SERVED_SCAN_FORMS = {(3, 3): "served pairwise: per-lane α-subsets vs per-lane slabs"}
+
+
 @contextlib.contextmanager
-def checked_scans(rows: list):
+def checked_scans(rows: list, forms: dict = SCAN_FORMS):
     """Inside the block, hold every call of kernel 2's wrapper against the
     plain version on the same operands, per min-d² entry within
     2·(D+2)·eps32·scale², and append one row per call (its operand form,
-    shape, gated lanes and error) to ``rows``."""
+    shape, gated lanes and error) to ``rows``.  A call whose operand form
+    is not in ``forms`` fails."""
     import torch
 
     from repro_torch.core.fp_margin import sqdist_tolerance
@@ -543,7 +705,7 @@ def checked_scans(rows: list):
                     float(torch.linalg.vector_norm(sp, dim=-1).max()))
         tol = sqdist_tolerance(q.shape[-1], scale)
         err = max(finite_err(ka, pa), finite_err(kb, pb))
-        form = SCAN_FORMS[(q.ndim, slab.ndim)]
+        form = forms[(q.ndim, slab.ndim)]
         assert err <= tol, (form, tuple(q.shape), tuple(slab.shape), err, tol)
         lb, cut = kw.get("lb"), kw.get("cut")
         rows.append({"form": form, "q": list(q.shape), "slab": list(slab.shape),
@@ -601,7 +763,7 @@ def phase_search(seed: int) -> dict:
     from repro_torch.kernels.hausdorff import hausdorff as K
     from repro_torch.obs import trace
 
-    sets, store, q, info = corpus_store(seed, N_CORPUS)
+    sets, store, q, info, labels = corpus_store(seed, N_CORPUS)
     runs = {}
     with trace.capture() as events:
         n1, n2 = K.fused_minscan.launches, KB.batched_minscan.launches
@@ -641,9 +803,10 @@ def phase_search(seed: int) -> dict:
         "stage2a_passes": passes, "launches": launches,
         "kernel2_held_to_plain": scans,
     }
-    del bf, warm, held
+    del warm, held
+    big = {"sets": sets, "store": store, "q": q, "labels": labels, "res": res, "bf": bf}
 
-    sets, small, q, info = corpus_store(seed + 1, N_CORPUS_SMALL)
+    sets, small, q, info, labels = corpus_store(seed + 1, N_CORPUS_SMALL)
     checks = []
     for label, kw, bf_kw in (
         ("directed", dict(variant="directed"), dict(variant="directed")),
@@ -656,8 +819,9 @@ def phase_search(seed: int) -> dict:
         checks.append({"check": label, "ids": r.ids.tolist(), "cascade_s": r.meta.elapsed_s,
                        "brute_force_s": b.meta.elapsed_s, "exact_refines": r.stats["exact_refines"]})
     runs["small_corpus"] = {**info, "checks": checks}
-    return {"runs": runs, "store": store, "q": q, "passes": passes,
-            "scan_err": max(r["max_abs_err"] for r in scans)}
+    return {"runs": runs, "store": big["store"], "q": big["q"], "passes": passes,
+            "held": held_summary("search", scans), "big": big,
+            "small": {"sets": sets, "store": small, "q": q, "labels": labels}}
 
 
 def phase_times_batched(corpus: dict, env: dict) -> list[dict]:
@@ -680,6 +844,358 @@ def phase_times_batched(corpus: dict, env: dict) -> list[dict]:
                                 q, b.points[take], b.valid[take], lb, cut, env))
     torch.cuda.empty_cache()
     emit({"phase": "times_batched", "rows": rows})
+    return rows
+
+
+def batch_queries(seed: int, sets, labels, q0):
+    """search_batch's unique queries: ``q0`` (phase 8's query) and N_UNIQUE − 1
+    more, 128 points each around the centroids of sets in other clusters,
+    drawn from ``seed``."""
+    import numpy as np
+
+    picked, seen = [], {int(labels[0])}
+    for sid, lab in enumerate(labels):
+        if int(lab) not in seen:
+            seen.add(int(lab))
+            picked.append(sid)
+        if len(picked) == N_UNIQUE - 1:
+            break
+    rng = np.random.RandomState(seed + 100)
+    qs = [q0] + [(np.asarray(sets[sid]).mean(axis=0) + rng.randn(N_QUERY, D).astype(np.float32) * 0.5)
+                 .astype(np.float32) for sid in picked]
+    return qs, picked
+
+
+def batch_requests(uniq):
+    """The 16 requests: each unique query 4 times, the last of each at K_SMALL."""
+    reqs = [(i % N_UNIQUE) for i in range(N_REQUESTS)]
+    ks = [K_SMALL if i >= N_REQUESTS - N_UNIQUE else K_TOP for i in range(N_REQUESTS)]
+    return [uniq[u] for u in reqs], ks, reqs
+
+
+def check_batch(results, ks, owners, bfs, label: str, backend: str = "multiquery_cuda") -> None:
+    """Every search_batch result bitwise its query's brute force (a prefix
+    of it at K_SMALL), nothing absorbed, kernel 3 serving stage 2a."""
+    import numpy as np
+
+    for i, (r, k, u) in enumerate(zip(results, ks, owners)):
+        bf = bfs[u]
+        assert np.array_equal(r.ids, bf.ids[:k]), (label, i, r.ids, bf.ids[:k])
+        assert np.array_equal(r.values, bf.values[:k]), (label, i, r.values, bf.values[:k])
+        assert r.degraded is False and "fault" not in r.stats and "backend_fallbacks" not in r.stats, (label, i)
+        assert r.stats["masked_backend"] == backend, (label, r.stats)
+
+
+@contextlib.contextmanager
+def checked_multiquery(rows: list, keep: dict):
+    """Inside the block, hold every call of kernel 3's wrapper against the
+    plain version on the same operands, per min-d² entry within
+    2·(D+2)·eps32·scale², and append one row per call to ``rows``; keep the
+    operands of the call with the most work (computed pairs × cap) in
+    ``keep``, for timing the kernel at the path's own shape."""
+    import torch
+
+    from repro_torch.core.fp_margin import sqdist_tolerance
+    from repro_torch.kernels.hausdorff import batched as KB
+
+    wrapper = KB.multiquery_min_sqdists
+
+    def checked(qs, slab, **kw):
+        ka, kb = wrapper(qs, slab, **kw)
+        pa, pb = KB.multiquery_min_sqdists_mirror(qs, slab, **kw)
+        qp, _ = KB._poison(qs, kw.get("valid_qs"))
+        sp, _ = KB._poison(slab, kw.get("valid_slab"))
+        scale = max(float(torch.linalg.vector_norm(qp, dim=-1).max()),
+                    float(torch.linalg.vector_norm(sp, dim=-1).max()))
+        tol = sqdist_tolerance(qs.shape[-1], scale)
+        err = max(finite_err(ka, pa), finite_err(kb, pb))
+        assert err <= tol, (tuple(qs.shape), tuple(slab.shape), err, tol)
+        lb, cut = kw.get("lb"), kw.get("cut")
+        computed = qs.shape[0] * slab.shape[0] if lb is None else int((lb <= cut).sum())
+        rows.append({"qs": list(qs.shape), "slab": list(slab.shape),
+                     "gated_pairs": qs.shape[0] * slab.shape[0] - computed,
+                     "max_abs_err": err, "tol": tol})
+        if computed * slab.shape[1] > keep.get("work", -1):
+            keep.update(work=computed * slab.shape[1], qs=qs, slab=slab, **kw)
+        del pa, pb
+        return ka, kb
+
+    KB.multiquery_min_sqdists = checked
+    try:
+        yield
+    finally:
+        KB.multiquery_min_sqdists = wrapper
+
+
+def phase_search_batch(seed: int, corpus: dict) -> dict:
+    """search_batch over phase 8's 16,384-set store: 16 requests over 4
+    unique queries, each bitwise equal to its brute force; then an
+    uncounted run with every kernel-3 call held to the plain version."""
+    from repro_torch.hd import search, search_batch
+    from repro_torch.obs import trace
+
+    big = corpus["big"]
+    store = big["store"]
+    uniq, picked = batch_queries(seed, big["sets"], big["labels"], big["q"])
+    queries, ks, owners = batch_requests(uniq)
+    with trace.capture() as events:
+        before = counts()
+        res = search_batch(queries, store, ks, on_fault="raise", measure=True)
+        launches = {k: v - before[k] for k, v in counts().items()}
+        spans = {e["name"]: e["dur_s"] for e in events() if e["type"] == "span"}
+        passes = [e["attrs"] for e in events() if e["name"] == "cascade.stage2a_pass"]
+    assert launches["multiquery_minscan"] > 0, launches
+    assert res[0].stats["dedup_hits"] == N_REQUESTS - N_UNIQUE, res[0].stats
+    # brute force: phase 8's for its query, three new ones
+    bfs = [big["bf"]]
+    bf_s = []
+    for q in uniq[1:]:
+        b = search(q, store, K_TOP, method="exact", on_fault="raise", measure=True)
+        bfs.append(b)
+        bf_s.append(b.meta.elapsed_s)
+    check_batch(res, ks, owners, bfs, "16k search_batch")
+    import numpy as np
+
+    one = big["res"]
+    assert np.array_equal(res[0].ids, one.ids) and np.array_equal(res[0].values, one.values), "vs phase 8 search"
+    # kernel 3 at the batch's own shapes: one more run, uncounted, with
+    # every wrapper call held to the plain version
+    held_rows, keep = [], {}
+    with uncounted(), checked_multiquery(held_rows, keep):
+        held = search_batch(queries, store, ks, on_fault="raise")
+    check_batch(held, ks, owners, bfs, "16k search_batch, kernel 3 held to its plain version")
+    assert len(held_rows) == launches["multiquery_minscan"], (held_rows, launches)
+    stats = {k: v for k, v in res[0].stats.items() if not isinstance(v, (list, dict))}
+    out = {
+        "n_sets": store.n_sets, "requests": N_REQUESTS, "unique": N_UNIQUE, "ks": ks,
+        "query_sets": [0] + picked,
+        "search_batch_s": res[0].meta.elapsed_s,
+        "stage_s": {k: spans.get(f"cascade.{k}") for k in ("stage0", "stage2a", "stage2b")},
+        "span_s": spans.get("index.search_batch"),
+        "stats": stats, "stage2a_passes": passes, "launches": launches,
+        "pairs_per_query": [r.stats["stage2_batched_candidates"] for r in res[:N_UNIQUE]],
+        "refines_per_query": [r.stats["exact_refines"] for r in res[:N_UNIQUE]],
+        "one_query_search_s": corpus["runs"]["corpus"]["cascade_s"],
+        "brute_force_s": [corpus["runs"]["corpus"]["brute_force_s"], *bf_s],
+        "kernel3_held_to_plain": held_rows,
+        "ids": [r.ids.tolist() for r in res[:N_UNIQUE]],
+    }
+    emit({"phase": "search_batch", **out})
+    return {"results": res, "queries": queries, "ks": ks, "keep": keep,
+            "held": held_summary("search_batch", held_rows)}
+
+
+def phase_search_batch_small(seed: int, corpus: dict) -> None:
+    """search_batch directed and anytime ε = 0 at phase 8's 2,048 sets, each
+    bitwise equal to brute force."""
+    from repro_torch.hd import search, search_batch
+
+    small = corpus["small"]
+    store = small["store"]
+    uniq, _ = batch_queries(seed + 1, small["sets"], small["labels"], small["q"])
+    checks = []
+    for label, kw, bf_kw in (
+        ("directed", dict(variant="directed"), dict(variant="directed")),
+        ("anytime eps=0", dict(mode="anytime", epsilon=0.0), {}),
+    ):
+        res = search_batch(uniq, store, K_TOP, on_fault="raise", measure=True, **kw)
+        bfs = [search(q, store, K_TOP, method="exact", on_fault="raise", **bf_kw) for q in uniq]
+        check_batch(res, [K_TOP] * len(uniq), list(range(len(uniq))), bfs, label)
+        checks.append({"check": label, "search_batch_s": res[0].meta.elapsed_s,
+                       "refines": [r.stats["exact_refines"] for r in res],
+                       "launches": res[0].stats["multiquery_launches"]})
+    emit({"phase": "search_batch_small", "n_sets": store.n_sets, "checks": checks})
+
+
+def phase_served(seed: int, corpus: dict, batch: dict) -> dict:
+    """The serving layer on the card: a QueryEngine (max_batch 16) over a
+    ProHDService around phase 8's store answers phase 10's requests in one
+    flush, bitwise equal to search_batch; ProHDService.submit serves 8
+    Random-Cloud pairs through kernel 2, certified against the exact
+    set_distance."""
+    import asyncio
+
+    import numpy as np
+
+    from repro_torch.core.fp_margin import fp_value_margin
+    from repro_torch.data.pointclouds import make_generator, random_clouds
+    from repro_torch.hd import set_distance
+    from repro_torch.serve import EngineConfig, ProHDService, QueryEngine, ServeConfig
+
+    svc = ProHDService(ServeConfig(), store=corpus["big"]["store"])
+
+    async def serve_all():
+        eng = QueryEngine(svc, EngineConfig(max_batch=N_REQUESTS, max_wait_s=30.0))
+        try:
+            out = await asyncio.gather(*[eng.search(q, k) for q, k in zip(batch["queries"], batch["ks"])])
+            return eng, out
+        finally:
+            await eng.close()
+
+    before = counts()
+    t0 = time.perf_counter()
+    eng, served = asyncio.run(serve_all())
+    engine_s = time.perf_counter() - t0
+    engine_launches = {k: v - before[k] for k, v in counts().items()}
+    assert eng.stats["flushes"] == 1 and eng.stats["batched_queries"] == N_REQUESTS, eng.stats
+    for i, (r, d) in enumerate(zip(served, batch["results"])):
+        assert np.array_equal(r.ids, d.ids) and np.array_equal(r.values, d.values), ("served", i)
+        assert r.degraded is False, ("served", i)
+    assert engine_launches["multiquery_minscan"] > 0, engine_launches
+
+    gen = make_generator(seed + 30, DEVICE)
+    pairs = [random_clouds(gen, N_PAIR_A, n_b, D) for n_b in PAIR_B_SIZES for _ in range(2)]
+    before = counts()
+    t0 = time.perf_counter()
+    rids = [svc.submit(a, b) for a, b in pairs]
+    out = svc.flush()
+    pairwise_s = time.perf_counter() - t0
+    pair_launches = {k: v - before[k] for k, v in counts().items()}
+    assert pair_launches["batched_minscan"] > 0, pair_launches
+    rows = []
+    with uncounted():
+        for rid, (a, b) in zip(rids, pairs):
+            h = float(set_distance(a, b).value)
+            scale = scale_of(a, b)
+            m = float(fp_value_margin(D, scale, h))
+            r = out[rid]
+            assert r["lower"] <= h + m and h <= r["upper"] + m and r["hd"] <= h + m, (rid, r, h, m)
+            rows.append({"n": [a.shape[0], b.shape[0]], "H": h, **r, "margin": m})
+    # Kernel 2 at the shapes the served pairwise path gives it (per-lane
+    # α-subsets against slabs of 4,096-16,384 rows, many slab tiles per
+    # CTA): the same 8 pairs flushed again, uncounted, with every wrapper
+    # call held to the plain version; the answers must not move.
+    scans = []
+    with uncounted(), checked_scans(scans, SERVED_SCAN_FORMS):
+        rids2 = [svc.submit(a, b) for a, b in pairs]
+        out2 = svc.flush()
+    assert len(scans) == pair_launches["batched_minscan"], (scans, pair_launches)
+    for rid, rid2 in zip(rids, rids2):
+        assert out2[rid2] == out[rid], ("served pairwise, held run", rid, out[rid], out2[rid2])
+    emit({"phase": "served", "engine_s": engine_s, "engine_stats": eng.stats,
+          "engine_launches": engine_launches, "pairwise_s": pairwise_s,
+          "pairwise_launches": pair_launches, "pairs": rows, "kernel2_held_to_plain": scans,
+          "heartbeat": {"count": svc.heartbeat.count, "total_wall_s": svc.heartbeat.total_wall_s}})
+    del pairs
+    return {"launches": {"engine": engine_launches, "pairwise": pair_launches},
+            "held": held_summary("serve pairwise", scans)}
+
+
+def multiquery_bound(peak: float, qs, slab, valid_qs, valid_slab, lb, cut) -> tuple:
+    """(bound_ms, bound_by, flops) of a kernel-3 pass: 2·D FLOPs per (valid
+    query row × valid slab row) of each computed pair; bytes for each input
+    read once (the queries, the computed sets' valid slab rows and norms,
+    the gate) and each output written once."""
+    n_queries, n_q, d = qs.shape
+    n_sets, cap = slab.shape[:2]
+    on = (lb <= cut) if lb is not None else None
+    rows_q = (valid_qs.sum(dim=1).double() if valid_qs is not None
+              else qs.new_full((n_queries,), n_q, dtype=qs.dtype).double())
+    rows_s = (valid_slab.sum(dim=1).double() if valid_slab is not None
+              else slab.new_full((n_sets,), cap, dtype=slab.dtype).double())
+    pair_rows = rows_q[:, None] * rows_s[None, :]
+    if on is not None:
+        pair_rows = pair_rows * on.double()
+        touched = on.any(dim=0)
+    else:
+        touched = slab.new_ones((n_sets,), dtype=bool)
+    flops = 2.0 * d * float(pair_rows.sum())
+    nbytes = 4.0 * (float(rows_q.sum()) * (d + 1) + float(rows_s[touched].sum()) * (d + 1)
+                    + n_queries * n_sets * (n_q + cap) + (2 * n_queries * n_sets if on is not None else 0))
+    op_ms = flops / peak * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(op_ms, byte_ms), ("operations" if op_ms >= byte_ms else "bytes"), flops
+
+
+def time_multiquery(label, qs, slab, valid_qs, valid_slab, lb, cut, env: dict, *, plain_queries: int) -> dict:
+    """CUDA-event times of kernel 3, of Q launches of kernel 2 on the same
+    work, of the plain version (on the first ``plain_queries`` queries) and
+    of Q calls of torch.cdist + amin, with the timed outputs checked."""
+    import torch
+
+    from repro_torch.core.fp_margin import sqdist_tolerance
+    from repro_torch.kernels.hausdorff import batched as KB
+
+    n_queries, n_q, d = qs.shape
+    n_sets, cap = slab.shape[:2]
+    qp, q2 = KB._poison(qs, valid_qs)
+    sp, b2 = KB._poison(slab, valid_slab)
+    gl, gc = (None, None) if lb is None else (lb.float().contiguous(), cut.float().contiguous())
+    min_a = torch.empty(n_queries, n_sets, n_q, device=DEVICE)
+    min_b = torch.empty(n_queries, n_sets, cap, device=DEVICE)
+
+    def kernel3():
+        min_a.fill_(torch.inf)
+        min_b.fill_(torch.inf)
+        KB.multiquery_minscan(qp, q2, sp, b2, min_a, min_b, lb=gl, cut=gc)
+
+    a2_ = torch.empty(n_queries, n_sets, n_q, device=DEVICE)
+    b2_ = torch.empty(n_queries, n_sets, cap, device=DEVICE)
+
+    def kernel2_per_query():
+        a2_.fill_(torch.inf)
+        b2_.fill_(torch.inf)
+        for i in range(n_queries):
+            KB.batched_minscan(qp[i].expand(n_sets, n_q, d), q2[i].expand(n_sets, n_q), sp, b2, a2_[i], b2_[i],
+                               lb=None if gl is None else gl[i].contiguous(),
+                               cut=None if gc is None else gc[i].contiguous())
+
+    with uncounted():
+        ms = cuda_ms(kernel3)
+        ms2 = cuda_ms(kernel2_per_query)
+    assert torch.equal(min_a, a2_) and torch.equal(min_b, b2_), (label, "kernel 3 vs kernel 2 per query")
+    del a2_, b2_
+    m = plain_queries
+    plain = {}
+
+    def plain_scan():
+        plain["mins"] = KB.multiquery_min_sqdists_mirror(
+            qs[:m], slab, valid_qs=None if valid_qs is None else valid_qs[:m], valid_slab=valid_slab,
+            lb=None if lb is None else lb[:m], cut=None if cut is None else cut[:m])
+
+    plain_ms = cuda_ms(plain_scan, reps=3)
+    pa, pb = plain.pop("mins")
+    scale = max(float(torch.linalg.vector_norm(qp, dim=-1).max()), float(torch.linalg.vector_norm(sp, dim=-1).max()))
+    tol = sqdist_tolerance(d, scale)
+    err = max(finite_err(min_a[:m], pa), finite_err(min_b[:m], pb))
+    assert err <= tol, (label, err, tol)
+    del pa, pb
+
+    def library():
+        for i in range(n_queries):
+            dist = torch.cdist(qp[i].expand(n_sets, n_q, d), sp)
+            dist.amin(dim=2), dist.amin(dim=1)
+
+    library_ms = cuda_ms(library, reps=3)
+    torch.cuda.empty_cache()
+    bound_ms, bound_by, flops = multiquery_bound(env["fp32_peak_tflops"] * 1e12, qs, slab, valid_qs, valid_slab,
+                                                 lb, cut)
+    return {"label": label, "shape": [n_queries, n_q, n_sets, cap, d],
+            "computed_pairs": n_queries * n_sets if lb is None else int((lb <= cut).sum()),
+            "ms": ms, "kernel2_x_q_ms": ms2, "plain_ms": plain_ms, "plain_queries": m,
+            "library_ms": library_ms, "library": f"{n_queries} x torch.cdist + amin (distances, not d²; yardstick)",
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err, "tol": tol,
+            "achieved_tflops": flops / (ms * 1e-3) / 1e12}
+
+
+def phase_times_multiquery(corpus: dict, batch: dict, env: dict) -> list[dict]:
+    """Kernel 3 timed at Q = 16 on the full cap-256 bucket (ungated) and on
+    the largest stage-2a pass of phase 10's search_batch, as it ran."""
+    import torch
+
+    store = corpus["store"]
+    bucket = store.packed_buckets()[256]
+    qs = torch.stack([torch.from_numpy(q).to(DEVICE) for q in batch["queries"]])
+    rows = [time_multiquery(f"Q {N_REQUESTS}, full cap-256 bucket, ungated", qs, bucket.points, None,
+                            bucket.valid, None, None, env, plain_queries=2)]
+    k = batch["keep"]
+    if k:
+        rows.append(time_multiquery(
+            f"search_batch's largest stage-2a pass (Q {k['qs'].shape[0]}, cap {k['slab'].shape[1]}, "
+            f"batch {k['slab'].shape[0]})", k["qs"], k["slab"], k.get("valid_qs"), k.get("valid_slab"),
+            k.get("lb"), k.get("cut"), env, plain_queries=k["qs"].shape[0]))
+    torch.cuda.empty_cache()
+    emit({"phase": "times_multiquery", "rows": rows})
     return rows
 
 
@@ -856,13 +1372,21 @@ def phase_times(seed: int, env: dict) -> list[dict]:
     return rows
 
 
-def kernel_entry(name, route, source, replaces, launches, max_err, rows) -> dict:
+def held_summary(path: str, scans: list) -> dict:
+    """One path's wrapper calls held to the plain version: how many, the
+    worst |Δ| and the tightest tolerance any of them was held to."""
+    return {"path": path, "calls": len(scans), "max_abs_err": max(r["max_abs_err"] for r in scans),
+            "min_tol": min(r["tol"] for r in scans)}
+
+
+def kernel_entry(name, route, source, replaces, launches, max_err, rows, held=()) -> dict:
     main_row = rows[0]
     return {"name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": max([max_err] + [r["max_abs_err"] for r in rows]),
+            "launches": launches,
+            "max_abs_err": max([max_err] + [r["max_abs_err"] for r in rows] + [h["max_abs_err"] for h in held]),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"], "library_ms": main_row["library_ms"],
-            "shape": main_row["shape"], "shapes": rows}
+            "shape": main_row["shape"], "shapes": rows, "held_on_paths": list(held)}
 
 
 def main() -> int:
@@ -883,9 +1407,10 @@ def main() -> int:
     phase_build()
     max_err = phase_kernel_vs_plain(args.seed)
     max_err2 = phase_batched_vs_plain(args.seed)
+    max_err3 = phase_multiquery_vs_plain(args.seed)
 
     # Main path 1: the pairwise front door (exact, ProHD, variants).
-    K.fused_minscan.launches = KB.batched_minscan.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     a, b, h, scale, exact_err = phase_exact(args.seed)
     launches_exact = K.fused_minscan.launches
@@ -896,32 +1421,58 @@ def main() -> int:
     phase_variants(args.seed)
     pair_launches = K.fused_minscan.launches
     assert launches_exact > 0 and launches_prohd > 0, (launches_exact, launches_prohd)
-    assert KB.batched_minscan.launches == 0, KB.batched_minscan.launches
+    assert KB.batched_minscan.launches == 0 and KB.multiquery_minscan.launches == 0, counts()
     emit({"phase": "main_path", "path": "set_distance", "launches": pair_launches,
           "exact_launches": launches_exact, "prohd_launches": launches_prohd,
           "wall_s": time.perf_counter() - t0})
 
     # Main path 2: the corpus search.
-    K.fused_minscan.launches = KB.batched_minscan.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     corpus = phase_search(args.seed)
-    search_launches = {"fused_minscan": K.fused_minscan.launches,
-                       "batched_minscan": KB.batched_minscan.launches}
+    search_launches = counts()
     assert search_launches["batched_minscan"] > 0 and search_launches["fused_minscan"] > 0, search_launches
+    assert search_launches["multiquery_minscan"] == 0, search_launches
     emit({"phase": "search", **corpus["runs"]})
     emit({"phase": "main_path", "path": "search", "launches": search_launches,
           "wall_s": time.perf_counter() - t0})
 
+    # Main path 3: search_batch (16,384 sets, then directed / anytime at 2,048).
+    zero_counts()
+    t0 = time.perf_counter()
+    batch = phase_search_batch(args.seed, corpus)
+    phase_search_batch_small(args.seed, corpus)
+    batch_launches = counts()
+    assert batch_launches["multiquery_minscan"] > 0, batch_launches
+    emit({"phase": "main_path", "path": "search_batch", "launches": batch_launches,
+          "wall_s": time.perf_counter() - t0})
+
+    # Main path 4: the serving layer (QueryEngine search, ProHDService pairwise).
+    zero_counts()
+    t0 = time.perf_counter()
+    served = phase_served(args.seed, corpus, batch)
+    serve_launches = counts()
+    assert serve_launches["multiquery_minscan"] > 0 and serve_launches["batched_minscan"] > 0, serve_launches
+    emit({"phase": "main_path", "path": "serve", "launches": serve_launches, "by_request": served["launches"],
+          "wall_s": time.perf_counter() - t0})
+
     rows = phase_times(args.seed, env)
     rows2 = phase_times_batched(corpus, env)
-    scan_err = corpus["scan_err"]
-    del corpus
+    rows3 = phase_times_multiquery(corpus, batch, env)
+    held2, held3 = (corpus["held"], served["held"]), (batch["held"],)
+    del corpus, batch
     torch.cuda.empty_cache()
+
+    def total(name):
+        return sum(c[name] for c in (search_launches, batch_launches, serve_launches))
+
     emit({"kernels": [
         kernel_entry("fused_minscan", "cuda", KERNEL_SOURCE, TPU_KERNEL,
-                     pair_launches + search_launches["fused_minscan"], max(max_err, exact_err), rows),
+                     pair_launches + total("fused_minscan"), max(max_err, exact_err), rows),
         kernel_entry("batched_minscan", "cuda", KERNEL2_SOURCE, TPU_KERNEL2,
-                     search_launches["batched_minscan"], max(max_err2, scan_err), rows2),
+                     total("batched_minscan"), max_err2, rows2, held2),
+        kernel_entry("multiquery_minscan", "cuda", KERNEL3_SOURCE, TPU_KERNEL3,
+                     total("multiquery_minscan"), max_err3, rows3, held3),
     ]})
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
     print(smi("name,power.limit"), flush=True)

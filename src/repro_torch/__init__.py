@@ -14,9 +14,15 @@ Module layout mirrors ``repro`` so each counterpart is found by path::
     core/fp_margin.py      the pinned fp32 margins
     core/masked.py         masked exact HD and ProHD on padded clouds, over lanes
     kernels/hausdorff/     the hand-written scans (CUDA C++): the fused
-                           min-d² scan and the batched bucket scan
-    hd/                    the ``set_distance`` and ``search`` front doors
-    index/                 ``SetStore`` and the certified cascade search
+                           min-d² scan, the batched and the multi-query
+                           bucket scans
+    hd/                    the ``set_distance``, ``search`` and
+                           ``search_batch`` front doors
+    index/                 ``SetStore``, the certified cascade search and
+                           its batched multi-query form
+    serve/                 ``ProHDService`` and the async ``QueryEngine``
+    launch/serve.py        the serving driver (``python -m``)
+    train/                 heartbeats and retry-with-recovery
     obs/, reliability/     spans and metrics; typed faults and injection
     data/pointclouds.py    the paper's synthetic clouds and the corpus
     interop.py             reference configs, arrays and stores → port objects

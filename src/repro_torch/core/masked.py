@@ -14,8 +14,13 @@ port writes the lane axis out: an operand is either shared by every lane,
   slab, with the per-set gate ``lb <= cut`` (gated lanes give the +inf
   sentinel; under ``directed`` an all-invalid query's 0.0 wins).  The
   ``batched_*`` backends run it as one pass of the batched bucket scan
-  (``kernels/hausdorff/batched.py``); the others run each lane's pair in
-  turn and apply the gate as a lane select.
+  (``kernels/hausdorff/batched.py``), the ``multiquery_*`` backends as a
+  one-query pass of the multi-query scan; the others run each lane's pair
+  in turn and apply the gate as a lane select.
+- ``masked_exact_hd_multiquery``: (Q, S) exact HD of a query batch against
+  a bucket slab with a per-(query, set) gate — one pass of the multi-query
+  scan on the ``multiquery_*`` backends, one ``masked_exact_hd_batched``
+  per query on the others.
 - ``masked_prohd_certified``: the masked ProHD triple (hd, lower, upper)
   per lane — masked moments, Gram and ``torch.linalg.eigh`` batched over
   the lanes, α-extreme selection with the static capacity, the exact subset
@@ -25,9 +30,10 @@ port writes the lane axis out: an operand is either shared by every lane,
 Empty-side conventions (``exact.finalize_mins``): an all-invalid QUERY
 side reduces to 0.0; an all-invalid TARGET side to +inf.
 
-Within the port, a ``batched_*`` lane's bits depend on nothing but its own
-rows (the scan accumulates each dot product in one fixed k order), so
-padded vs raw and batch size or composition cannot move them.  The other
+Within the port, a ``batched_*`` or ``multiquery_*`` lane's bits depend on
+nothing but its own rows (the scan accumulates each dot product in one
+fixed k order), so padded vs raw and batch size or composition cannot move
+them.  The other
 backends go through ``torch.matmul``, whose CPU bits can change with the
 GEMM shape; across backends the contract is ``fp_value_margin``.
 """
@@ -45,8 +51,10 @@ __all__ = [
     "MaskedCertificate",
     "EXACT_MASKED_BACKENDS",
     "BATCHED_NATIVE_BACKENDS",
+    "MULTIQUERY_NATIVE_BACKENDS",
     "masked_exact_hd",
     "masked_exact_hd_batched",
+    "masked_exact_hd_multiquery",
     "masked_centroid",
     "masked_direction_set",
     "masked_projected_hd",
@@ -97,23 +105,46 @@ def _batched_pair(use_kernel: bool):
     return impl
 
 
+def _multiquery_pair(use_kernel: bool):
+    """Single-pair view of the multi-query bucket scan: Q = 1, S = 1.  It
+    lets the conformance sweeps over this registry hold the query-axis
+    scan to the same contract as every other backend."""
+
+    def impl(a, b, valid_a, valid_b, *, directed, block_a, block_b):
+        del block_a, block_b  # the scan's tile is fixed
+        va = None if valid_a is None else valid_a[None]
+        vb = None if valid_b is None else valid_b[None]
+        return batched.multiquery_bucket_hd(
+            a[None], b[None], valid_qs=va, valid_slab=vb, directed=directed, use_kernel=use_kernel,
+        )[0, 0]
+
+    return impl
+
+
 # Registry: name -> masked exact reduction of one padded pair.  "dense" and
 # "tiled" mirror the front door's exact/dense and exact/tiled dispatches;
 # "fused_mirror" is the raw min-vector reduction of kernel 1's plain
-# version.  "batched_cuda" is the batched bucket kernel (kernel 2) — its
-# wrapper runs the plain version on CPU tensors — and "batched_mirror" is
-# that plain version on any device.
+# version.  "batched_cuda" is the batched bucket kernel (kernel 2) and
+# "multiquery_cuda" the multi-query bucket kernel (kernel 3) — their
+# wrappers run the plain versions on CPU tensors — and "batched_mirror" /
+# "multiquery_mirror" are those plain versions on any device.
 EXACT_MASKED_BACKENDS = {
     "dense": _masked_exact_dense,
     "tiled": _masked_exact_tiled,
     "fused_mirror": _masked_exact_fused_mirror,
     "batched_cuda": _batched_pair(True),
     "batched_mirror": _batched_pair(False),
+    "multiquery_cuda": _multiquery_pair(True),
+    "multiquery_mirror": _multiquery_pair(False),
 }
 
 # Backends with a native slab-axis formulation: one pass per bucket with
 # the per-set gate in the scan, instead of one pair per lane.
 BATCHED_NATIVE_BACKENDS = ("batched_cuda", "batched_mirror")
+
+# Backends with a native query-axis × slab-axis formulation: one pass
+# measures a query batch against a bucket with a per-(query, set) gate.
+MULTIQUERY_NATIVE_BACKENDS = ("multiquery_cuda", "multiquery_mirror")
 
 
 def _check_backend(backend: str) -> None:
@@ -165,8 +196,11 @@ def masked_exact_hd_batched(
     shared; masks to match.  ``lb`` / ``cut`` (S,): lane s is measured iff
     ``lb[s] <= cut[s]`` (a NaN bound gates too); a gated lane gives +inf,
     or 0.0 under ``directed`` when its query side is all-invalid.  The
-    ``batched_*`` backends run the whole slab in one scan; every other
-    backend measures one pair per lane.
+    ``batched_*`` backends run the whole slab in one scan, and so do the
+    ``multiquery_*`` ones for a shared query and a per-lane slab (the Q = 1
+    view of the query-axis scan, which lets them serve as rungs of the
+    single-query cascade's ladder); every other backend and form measures
+    one pair per lane.
     """
     _check_backend(backend)
     if backend in BATCHED_NATIVE_BACKENDS:
@@ -174,6 +208,14 @@ def masked_exact_hd_batched(
             q, slab, valid_q=valid_q, valid_slab=valid_slab, lb=lb, cut=cut,
             directed=directed, use_kernel=backend == "batched_cuda",
         )
+    if backend in MULTIQUERY_NATIVE_BACKENDS and q.ndim == 2 and slab.ndim == 3:
+        return masked_exact_hd_multiquery(
+            q[None], slab,
+            valid_qs=None if valid_q is None else valid_q[None], valid_slab=valid_slab,
+            lb=None if lb is None else torch.as_tensor(lb, device=q.device)[None],
+            cut=None if cut is None else torch.as_tensor(cut, device=q.device)[None],
+            directed=directed, backend=backend,
+        )[0]
     q_lanes, s_lanes = q.ndim == 3, slab.ndim == 3
     n_sets = q.shape[0] if q_lanes else slab.shape[0] if s_lanes else 1
     vals = torch.stack([
@@ -198,6 +240,47 @@ def masked_exact_hd_batched(
     else:
         sentinel = torch.tensor(torch.inf, device=dev)
     return torch.where(lb <= cut, vals, sentinel)
+
+
+def masked_exact_hd_multiquery(
+    qs,
+    slab,
+    *,
+    valid_qs=None,
+    valid_slab=None,
+    lb=None,
+    cut=None,
+    directed: bool = False,
+    backend: str = "multiquery_mirror",
+    block_a: int = 2048,
+    block_b: int = 2048,
+) -> torch.Tensor:
+    """(Q, S) EXACT (directed) HD of a query batch against a padded bucket
+    slab — the multi-query cascade's stage-2a entry.
+
+    qs (Q, n_q, D) with ``valid_qs`` (Q, n_q); slab (S, cap, D) with
+    ``valid_slab`` (S, cap).  ``lb`` / ``cut`` (Q, S): pair (q, s) is
+    measured iff ``lb[q, s] <= cut[q, s]``, else it gives the +inf sentinel
+    (0.0 under ``directed`` for an all-invalid query).  The
+    ``multiquery_*`` backends run the whole block in one scan; every other
+    backend runs :func:`masked_exact_hd_batched` once per query.
+    """
+    _check_backend(backend)
+    if backend in MULTIQUERY_NATIVE_BACKENDS:
+        return batched.multiquery_bucket_hd(
+            qs, slab, valid_qs=valid_qs, valid_slab=valid_slab, lb=lb, cut=cut,
+            directed=directed, use_kernel=backend == "multiquery_cuda",
+        )
+    if qs.shape[0] == 0:
+        return torch.zeros((0, slab.shape[0]), device=qs.device)
+    return torch.stack([
+        masked_exact_hd_batched(
+            qs[i], slab, valid_q=_lane(valid_qs, i, True), valid_slab=valid_slab,
+            lb=_lane(lb, i, True), cut=_lane(cut, i, True), directed=directed,
+            backend=backend, block_a=block_a, block_b=block_b,
+        )
+        for i in range(qs.shape[0])
+    ])
 
 
 # ---------------------------------------------------------------------------

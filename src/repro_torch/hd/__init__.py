@@ -6,9 +6,10 @@
     res.value, res.lower, res.upper, res.stats     # uniform HDResult
 
     res = search(query, store, k=10)               # corpus top-k (repro_torch.index)
+    out = search_batch(queries, store, k=10)       # one result per query
 
 Layout (as in ``repro.hd``): registry, resolver, config, result, methods,
-engine, search.  ``search_batch`` is not ported yet.
+engine, search.
 """
 from repro_torch.hd.config import HDConfig
 from repro_torch.hd.engine import HDEngine, set_distance
@@ -24,11 +25,12 @@ from repro_torch.hd.registry import (
 )
 from repro_torch.hd.resolver import TILE_THRESHOLD, resolve_backend, resolve_block_sizes
 from repro_torch.hd.result import HDMeta, HDResult
-from repro_torch.hd.search import search
+from repro_torch.hd.search import search, search_batch
 
 __all__ = [
     "set_distance",
     "search",
+    "search_batch",
     "HDEngine",
     "HDConfig",
     "HDResult",

@@ -22,6 +22,9 @@ Where this differs from the reference:
     the device kind is the store's and the query's, not a global default.
     The TPU's 512/512 block rule is not copied: kernel 2's tile is fixed,
     and blocks only reach the plain per-pair backends.
+  * ``search_batch``'s stage 2a (:func:`resolve_multiquery_backend`) takes
+    the multi-query bucket kernel on ``cuda`` and its plain version
+    everywhere else; the reference's TPU rule has no counterpart.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ __all__ = [
     "resolve_backend",
     "resolve_block_sizes",
     "resolve_masked_backend",
+    "resolve_multiquery_backend",
     "resolve_anytime_refine_cap",
 ]
 
@@ -96,6 +100,16 @@ def resolve_masked_backend(device_kind: str = "cpu") -> str:
     if device_kind == "cuda":
         return "batched_cuda"
     return "batched_mirror"
+
+
+def resolve_multiquery_backend(device_kind: str = "cpu") -> str:
+    """The ``core.masked.EXACT_MASKED_BACKENDS`` name for ``search_batch``'s
+    multi-query bucket passes (stage 2a): the multi-query bucket kernel on
+    the card (``multiquery_cuda``), its plain version elsewhere
+    (``multiquery_mirror``)."""
+    if device_kind == "cuda":
+        return "multiquery_cuda"
+    return "multiquery_mirror"
 
 
 def resolve_anytime_refine_cap(n_sets: int, budget: int | None) -> int:

@@ -1,17 +1,17 @@
-"""Front-door corpus retrieval: ``repro_torch.hd.search``.
+"""Front-door corpus retrieval: ``repro_torch.hd.search`` / ``search_batch``.
 
-Counterpart of ``repro/hd/search.py``: one entry point that takes a query
-cloud and a :class:`repro_torch.index.SetStore` and returns the top-k
-nearest stored sets under a set distance.  The work lives in
-``repro_torch.index.cascade`` (imported lazily: the index dispatches its
-exact refines back through this package).  ``search_batch`` comes with the
-multi-query slice of the port.
+Counterpart of ``repro/hd/search.py``: entry points that take a query
+cloud (or a batch of them) and a :class:`repro_torch.index.SetStore` and
+return the top-k nearest stored sets under a set distance.  The work lives
+in ``repro_torch.index.cascade`` and ``repro_torch.index.multiquery``
+(imported lazily: the index dispatches its exact refines back through this
+package).
 """
 from __future__ import annotations
 
 from repro_torch.hd.config import HDConfig
 
-__all__ = ["search"]
+__all__ = ["search", "search_batch"]
 
 
 def search(
@@ -45,5 +45,41 @@ def search(
         variant=variant, method=method, backend=backend, stage2=stage2,
         masked_backend=masked_backend, config=config, measure=measure,
         deadline_s=deadline_s, on_fault=on_fault, validate=validate,
+        mode=mode, epsilon=epsilon, budget=budget, shards=shards,
+    )
+
+
+def search_batch(
+    queries,
+    store,
+    k,
+    *,
+    variant: str = "hausdorff",
+    backend: str = "auto",
+    masked_backend: str | None = None,
+    config: HDConfig | None = None,
+    measure: bool = False,
+    deadline_s: float | None = None,
+    on_fault: str = "degrade",
+    validate: bool = True,
+    mode: str = "exact",
+    epsilon: float = 0.0,
+    budget: int | None = None,
+    shards: int | None = None,
+):
+    """Top-k for every query of a batch in ONE call; see
+    ``repro_torch.index.multiquery.search_batch``.  Shares one stage-0
+    pass across the batch, deduplicates repeated queries, and tightens
+    every query's frontier in one multi-query pass per bucket (kernel 3 on
+    the card).  Per query, the result is bit for bit that query's own
+    ``search(...)`` (hence brute force) unless degraded; ``k`` may be one
+    int or one per query."""
+    from repro_torch.index import multiquery
+
+    return multiquery.search_batch(
+        queries, store, k,
+        variant=variant, backend=backend, masked_backend=masked_backend,
+        config=config, measure=measure, deadline_s=deadline_s,
+        on_fault=on_fault, validate=validate,
         mode=mode, epsilon=epsilon, budget=budget, shards=shards,
     )

@@ -11,8 +11,9 @@ is identical to brute force::
     store = SetStore(dim=16)              # on the card; device="cpu" here
     store.add_many(sets)
     res = search(query, store, k=10)      # res.ids, res.values, res.stats
+    out = search_batch(queries, store, 10)  # one SearchResult per query
 
-Not ported yet: ``search_batch`` (multi-query, kernel 3) and ``shards=``.
+Not ported yet: ``shards=``.
 """
 from repro_torch.index.cascade import (
     ON_FAULT_MODES,
@@ -30,6 +31,7 @@ from repro_torch.index.cascade import (
     interval_bounds,
     search,
 )
+from repro_torch.index.multiquery import search_batch
 from repro_torch.index.store import (
     SNAPSHOT_FORMAT,
     PackedBucket,
@@ -51,6 +53,7 @@ __all__ = [
     "summarize_set",
     "SNAPSHOT_FORMAT",
     "search",
+    "search_batch",
     "SearchResult",
     "SEARCH_VARIANTS",
     "SEARCH_METHODS",

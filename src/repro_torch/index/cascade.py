@@ -276,7 +276,7 @@ def masked_backend_ladder(first: str, device_kind: str) -> list[str]:
     """The masked-backend fallback ladder of one search.
 
     ``first`` (the requested or resolved backend) leads; on the CPU every
-    other registered backend but the kernel's follows, and a
+    other registered backend but the kernels' (``*_cuda``) follows, and a
     ``BackendUnavailable`` permanently advances the ladder (every backend
     returns the same top-k).  On the card the ladder is ``first`` alone:
     the others are plain versions, which never carry the path there, so
@@ -284,7 +284,7 @@ def masked_backend_ladder(first: str, device_kind: str) -> list[str]:
     """
     if device_kind == "cuda":
         return [first]
-    return [first] + [b for b in sorted(masked.EXACT_MASKED_BACKENDS) if b not in (first, "batched_cuda")]
+    return [first] + [b for b in sorted(masked.EXACT_MASKED_BACKENDS) if b != first and not b.endswith("_cuda")]
 
 
 def search(

@@ -1,8 +1,9 @@
 """Carry the reference's state across into the port's objects.
 
 ProHD has no weights: its state is the configuration and the data.  This
-module turns the fields of a reference ``HDConfig`` / ``ProHDConfig``,
-passed as a plain dict (``dataclasses.asdict``), and numpy arrays (clouds,
+module turns the fields of a reference ``HDConfig`` / ``ProHDConfig`` /
+``ServeConfig`` / ``EngineConfig``, passed as a plain dict
+(``dataclasses.asdict``), and numpy arrays (clouds,
 masks, projections, directions, a corpus) into the port's objects, so a
 test can build both packages' inputs from one dict and one set of arrays.
 It imports nothing of the reference package.
@@ -19,6 +20,8 @@ from repro_torch.core.prohd import ProHDConfig
 from repro_torch.device import as_tensor
 from repro_torch.hd.config import HDConfig
 from repro_torch.index.store import SetStore
+from repro_torch.serve.engine import EngineConfig
+from repro_torch.serve.server import ServeConfig
 
 __all__ = [
     "BACKEND_NAMES",
@@ -27,6 +30,8 @@ __all__ = [
     "backend_name",
     "hd_config_from_dict",
     "prohd_config_from_dict",
+    "serve_config_from_dict",
+    "engine_config_from_dict",
     "cloud",
     "mask",
     "store_from_reference",
@@ -34,13 +39,16 @@ __all__ = [
 
 # Reference name → port name, where they differ (front-door backends and
 # masked bucket backends).
-BACKEND_NAMES = {"fused_pallas": "fused_cuda", "batched_pallas": "batched_cuda"}
+BACKEND_NAMES = {"fused_pallas": "fused_cuda", "batched_pallas": "batched_cuda",
+                 "multiquery_pallas": "multiquery_cuda"}
 SUBSET_BACKEND_NAMES = {"pallas": "cuda"}
 # Reference fields with no counterpart in the port: ``interpret`` (no
-# interpret mode for a CUDA kernel) and the knobs of the sampling and
-# adaptive methods, which are not ported yet.
+# interpret mode for a CUDA kernel), ``max_shape_classes`` (the service's
+# cap on jit-compiled shape classes; PyTorch compiles nothing per shape) and
+# the knobs of the sampling and adaptive methods, which are not ported yet.
 DROPPED_FIELDS = frozenset({
     "interpret",
+    "max_shape_classes",
     "sampler",
     "budget",
     "budget_relative",
@@ -51,7 +59,7 @@ DROPPED_FIELDS = frozenset({
 
 
 def backend_name(ref_backend: str) -> str:
-    """The port's front-door backend name for a reference one."""
+    """The port's front-door or masked backend name for a reference one."""
     return BACKEND_NAMES.get(ref_backend, ref_backend)
 
 
@@ -78,6 +86,20 @@ def hd_config_from_dict(d: dict[str, Any]) -> HDConfig:
     if kw.get("prohd") is not None:
         kw["prohd"] = prohd_config_from_dict(dict(kw["prohd"]))
     return HDConfig(**kw)
+
+
+def serve_config_from_dict(d: dict[str, Any]) -> ServeConfig:
+    """A port ``ServeConfig`` from a reference ``ServeConfig``'s fields."""
+    return ServeConfig(**_fields(ServeConfig, d))
+
+
+def engine_config_from_dict(d: dict[str, Any]) -> EngineConfig:
+    """A port ``EngineConfig`` from a reference ``EngineConfig``'s fields
+    (a pinned masked backend is renamed as ``BACKEND_NAMES`` says)."""
+    kw = _fields(EngineConfig, d)
+    if kw.get("masked_backend") is not None:
+        kw["masked_backend"] = backend_name(kw["masked_backend"])
+    return EngineConfig(**kw)
 
 
 def cloud(x: np.ndarray, device=None) -> torch.Tensor:

@@ -2,8 +2,9 @@
 
 Each library is compiled from the checkout's own ``csrc/*.cu`` with
 ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the repository root,
-named by a hash of its sources and flags, so a changed source is rebuilt
-and an unchanged one is loaded as is.  The compiler's output (with
+named by a hash of its sources, the headers beside them (``csrc/*.cuh``)
+and the flags, so a changed source or header is rebuilt and an unchanged
+one is loaded as is.  The compiler's output (with
 ``ptxas``'s registers, shared memory and spills per kernel) is kept beside
 the library as ``<name>-<hash>.log``.  The library exposes a plain C
 interface and is loaded with ``ctypes``; nothing here includes PyTorch's
@@ -43,10 +44,12 @@ def find_nvcc() -> str:
 
 
 def load_library(name: str, sources: list[Path]) -> ctypes.CDLL:
-    """Compile ``sources`` into ``build/kernels/<name>-<hash>.so`` if that
-    file is missing, and load it."""
+    """Compile ``sources`` (which may include the ``*.cuh`` headers beside
+    them) into ``build/kernels/<name>-<hash>.so`` if that file is missing,
+    and load it."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    headers = sorted({hdr for src in sources for hdr in src.parent.glob("*.cuh")})
+    for src in [*sources, *headers]:
         h.update(src.read_bytes())
     out = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
     if not out.is_file():

@@ -1,7 +1,9 @@
-"""Batched bucket min-d² scan: one query against a whole padded bucket slab.
+"""Bucket min-d² scans: one query, or a query batch, against a padded slab.
 
 Counterpart of ``repro/kernels/hausdorff/batched.py`` (the Pallas
-``_batched_kernel`` and its wrappers).  For a query (n_q, D) and a slab
+``_batched_kernel`` and ``_multiquery_kernel`` and their wrappers).
+
+Kernel 2, the batched bucket scan.  For a query (n_q, D) and a slab
 (S, cap, D) of padded sets, one launch returns per set the min d² from
 every query row to the set's valid rows, (S, n_q), and from every set row
 to the valid query rows, (S, cap).  Set s is computed iff
@@ -29,7 +31,22 @@ so padding, batch size and batch composition cannot move them (CPU
 differ by the rounding of the fused multiply-add, within
 ``2·(D+2)·eps32·scale²`` per entry.
 
-The library is built from the checkout's source at first launch
+Kernel 3, the multi-query bucket scan.  For a query batch (Q, n_q, D)
+and a slab (S, cap, D), one launch returns per (query, set) pair the same
+two min vectors, (Q, S, n_q) and (Q, S, cap); pair (q, s) is computed iff
+``lb[q, s] <= cut[q, s]``.  The CTAs that read one set run side by side,
+so the batch shares the slab through L2:
+
+    multiquery_minscan            the launcher of ``csrc/multiquery_minscan.cu``
+    multiquery_min_sqdists        the wrapper (as above)
+    multiquery_bucket_hd          (Q, S) exact (directed) Hausdorff per pair
+    multiquery_min_sqdists_mirror the plain version: kernel 2's plain version
+                                  once per query
+
+Both kernels share one tile body (``csrc/minscan_tile.cuh``), so a pair of
+kernel 3 is bitwise kernel 2 with that query against that set.
+
+The libraries are built from the checkout's sources at first launch
 (``repro_torch.kernels._build``) and launched on PyTorch's current stream;
 nothing is built when this module is imported.
 """
@@ -50,15 +67,25 @@ __all__ = [
     "batched_min_sqdists",
     "batched_min_sqdists_mirror",
     "batched_bucket_hd",
+    "SOURCE_MULTIQUERY",
+    "build_multiquery",
+    "multiquery_minscan",
+    "multiquery_min_sqdists",
+    "multiquery_min_sqdists_mirror",
+    "multiquery_bucket_hd",
 ]
 
 # Rows of the query and of a set per CTA tile.
 TILE = 128
 # Query tiles per set go on grid.y, which CUDA caps at 65,535.
 _MAX_QUERY_ROWS = 65_535 * TILE
+# Pairs of one kernel-3 launch go on grid.x, which CUDA caps at 2^31 − 1.
+_MAX_PAIRS = 2**31 - 1
 SOURCE = Path(__file__).resolve().parent / "csrc" / "batched_minscan.cu"
+SOURCE_MULTIQUERY = SOURCE.with_name("multiquery_minscan.cu")
 
 _lib: ctypes.CDLL | None = None
+_lib_multiquery: ctypes.CDLL | None = None
 
 
 def build() -> ctypes.CDLL:
@@ -74,6 +101,20 @@ def build() -> ctypes.CDLL:
         fn.restype = i
         _lib = lib
     return _lib
+
+
+def build_multiquery() -> ctypes.CDLL:
+    """Compile (if needed) and load the multi-query kernel library."""
+    global _lib_multiquery
+    if _lib_multiquery is None:
+        lib = _build.load_library("multiquery_minscan", [SOURCE_MULTIQUERY])
+        fn = lib.multiquery_minscan
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+        fn.restype = i
+        _lib_multiquery = lib
+    return _lib_multiquery
 
 
 def _set_stride(name: str, t: torch.Tensor, shape: tuple[int, ...], device) -> int:
@@ -171,12 +212,13 @@ def _n_sets(q: torch.Tensor, slab: torch.Tensor) -> int:
     return q.shape[0] if q.ndim == 3 else slab.shape[0] if slab.ndim == 3 else 1
 
 
-def _gate(lb, cut, n_sets, device):
-    """The gate operands as contiguous fp32 (S,), or (None, None)."""
+def _gate(lb, cut, shape: tuple[int, ...], device):
+    """The gate operands as contiguous fp32 tensors of ``shape`` ((S,), or
+    (Q, S) for kernel 3), or (None, None)."""
     if lb is None and cut is None:
         return None, None
-    lb = torch.zeros((n_sets,), device=device) if lb is None else torch.as_tensor(lb, device=device)
-    cut = torch.full((n_sets,), torch.inf, device=device) if cut is None else torch.as_tensor(cut, device=device)
+    lb = torch.zeros(shape, device=device) if lb is None else torch.as_tensor(lb, device=device)
+    cut = torch.full(shape, torch.inf, device=device) if cut is None else torch.as_tensor(cut, device=device)
     return lb.float().contiguous(), cut.float().contiguous()
 
 
@@ -213,7 +255,7 @@ def batched_min_sqdists_mirror(
     d2 = d2.expand(n_sets, n_q, cap)
     min_a = d2.amin(dim=2) if cap else torch.full((n_sets, n_q), torch.inf, device=dev)
     min_b = d2.amin(dim=1) if n_q else torch.full((n_sets, cap), torch.inf, device=dev)
-    lb, cut = _gate(lb, cut, n_sets, dev)
+    lb, cut = _gate(lb, cut, (n_sets,), dev)
     if lb is not None:
         skip = ~(lb <= cut)
         min_a = torch.where(skip[:, None], torch.inf, min_a)
@@ -256,7 +298,7 @@ def batched_min_sqdists(
         qp, q2 = qp.expand(n_sets, *qp.shape), q2.expand(n_sets, *q2.shape)
     if sp.ndim == 2:
         sp, b2 = sp.expand(n_sets, *sp.shape), b2.expand(n_sets, *b2.shape)
-    lb, cut = _gate(lb, cut, n_sets, dev)
+    lb, cut = _gate(lb, cut, (n_sets,), dev)
     min_a = torch.full((n_sets, qp.shape[1]), torch.inf, device=dev)
     min_b = torch.full((n_sets, sp.shape[1]), torch.inf, device=dev)
     batched_minscan(qp, q2, sp, b2, min_a, min_b, lb=lb, cut=cut)
@@ -292,6 +334,166 @@ def batched_bucket_hd(
     scan = batched_min_sqdists if use_kernel else batched_min_sqdists_mirror
     min_a, min_b = scan(q, slab, valid_q=valid_q, valid_slab=valid_slab, lb=lb, cut=cut)
     h_a = _finalize_lanes(min_a, valid_q)
+    if directed:
+        return h_a
+    return torch.maximum(h_a, _finalize_lanes(min_b, valid_slab))
+
+
+# ---------------------------------------------------------------------------
+# Kernel 3: a query batch against one slab.
+# ---------------------------------------------------------------------------
+
+
+def multiquery_minscan(
+    qs: torch.Tensor,
+    q2: torch.Tensor,
+    slab: torch.Tensor,
+    b2: torch.Tensor,
+    min_a: torch.Tensor,
+    min_b: torch.Tensor,
+    *,
+    lb: torch.Tensor | None = None,
+    cut: torch.Tensor | None = None,
+) -> None:
+    """One launch: fold every (query, set) pair's d² entries into ``min_a``
+    / ``min_b``.
+
+    qs (Q, n_q, D), q2 (Q, n_q), slab (S, cap, D), b2 (S, cap): contiguous
+    fp32 on one CUDA device, norms +inf at invalid rows.  min_a (Q, S, n_q),
+    min_b (Q, S, cap): contiguous fp32 outputs, updated in place.  lb, cut
+    (Q, S): contiguous fp32 gate operands, or both None for an ungated pass.
+    """
+    dev = qs.device
+    if dev.type != "cuda":
+        raise ValueError(f"multiquery_minscan takes CUDA tensors, got {dev}")
+    if qs.ndim != 3 or slab.ndim != 3 or qs.shape[2] != slab.shape[2]:
+        raise ValueError(f"qs, slab must be (Q, n_q, D), (S, cap, D) with one D, "
+                         f"got {tuple(qs.shape)}, {tuple(slab.shape)}")
+    n_queries, n_q, d = qs.shape
+    n_sets, cap = slab.shape[:2]
+    if n_q > _MAX_QUERY_ROWS:
+        raise ValueError(f"at most {_MAX_QUERY_ROWS} query rows per launch, got {n_q}")
+    if n_queries * n_sets > _MAX_PAIRS:
+        raise ValueError(f"at most {_MAX_PAIRS} (query, set) pairs per launch, got {n_queries * n_sets}")
+    shapes = {"qs": (qs, (n_queries, n_q, d)), "q2": (q2, (n_queries, n_q)),
+              "slab": (slab, (n_sets, cap, d)), "b2": (b2, (n_sets, cap)),
+              "min_a": (min_a, (n_queries, n_sets, n_q)), "min_b": (min_b, (n_queries, n_sets, cap))}
+    if (lb is None) != (cut is None):
+        raise ValueError("lb and cut go together")
+    if lb is not None:
+        shapes.update(lb=(lb, (n_queries, n_sets)), cut=(cut, (n_queries, n_sets)))
+    for name, (t, shape) in shapes.items():
+        if t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{name} must be a contiguous float32 {shape} tensor on {dev}, "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if n_queries == 0 or n_sets == 0 or n_q == 0 or cap == 0:
+        return
+
+    fn = build_multiquery().multiquery_minscan
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            qs.data_ptr(), q2.data_ptr(), slab.data_ptr(), b2.data_ptr(),
+            None if lb is None else lb.data_ptr(), None if cut is None else cut.data_ptr(),
+            min_a.data_ptr(), min_b.data_ptr(), n_queries, n_sets, n_q, cap, d, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"multiquery_minscan launch failed: CUDA error {err}")
+    multiquery_minscan.launches += 1
+
+
+multiquery_minscan.launches = 0
+
+
+def multiquery_min_sqdists_mirror(
+    qs: torch.Tensor,
+    slab: torch.Tensor,
+    *,
+    valid_qs: torch.Tensor | None = None,
+    valid_slab: torch.Tensor | None = None,
+    lb: torch.Tensor | None = None,
+    cut: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the multi-query scan, gate included: kernel
+    2's plain version (:func:`batched_min_sqdists_mirror`) once per query,
+    so each pair has that version's bits and the kernel's gate semantics
+    (a NaN bound gates)."""
+    n_queries, n_q = qs.shape[0], qs.shape[1]
+    n_sets, cap = slab.shape[0], slab.shape[1]
+    lb, cut = _gate(lb, cut, (n_queries, n_sets), qs.device)
+    if n_queries == 0:
+        return (torch.empty((0, n_sets, n_q), device=qs.device),
+                torch.empty((0, n_sets, cap), device=qs.device))
+    per_query = [
+        batched_min_sqdists_mirror(
+            qs[i], slab, valid_q=None if valid_qs is None else valid_qs[i], valid_slab=valid_slab,
+            lb=None if lb is None else lb[i], cut=None if cut is None else cut[i],
+        )
+        for i in range(n_queries)
+    ]
+    return torch.stack([a for a, _ in per_query]), torch.stack([b for _, b in per_query])
+
+
+def multiquery_min_sqdists(
+    qs: torch.Tensor,
+    slab: torch.Tensor,
+    *,
+    valid_qs: torch.Tensor | None = None,
+    valid_slab: torch.Tensor | None = None,
+    lb: torch.Tensor | None = None,
+    cut: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Multi-query bidirectional min scan: ``(min_a (Q, S, n_q), min_b
+    (Q, S, cap))``.
+
+    qs         — (Q, n_q, D) query batch (each query a padded row prefix)
+    slab       — (S, cap, D) padded bucket slab
+    valid_qs   — (Q, n_q) bool, True = real row (None ⇒ all valid)
+    valid_slab — (S, cap) bool (None ⇒ all valid)
+    lb / cut   — (Q, S) gate operands: pair (q, s) is computed iff
+                 ``lb[q, s] <= cut[q, s]`` (None, None ⇒ no gate)
+
+    Entries of invalid rows, and every entry of a gated pair, are +inf.
+    Inputs of another float type are cast to fp32.  On a CPU tensor this
+    runs the plain version; on a CUDA tensor it launches the kernel or
+    raises.
+    """
+    if qs.device.type == "cpu" and slab.device.type == "cpu":
+        return multiquery_min_sqdists_mirror(qs, slab, valid_qs=valid_qs, valid_slab=valid_slab, lb=lb, cut=cut)
+    if qs.device.type != "cuda" or slab.device != qs.device:
+        raise ValueError(f"qs and slab must both be on one CUDA device or on the CPU, got {qs.device}, {slab.device}")
+    dev = qs.device
+    qp, q2 = _poison(qs, valid_qs)
+    sp, b2 = _poison(slab, valid_slab)
+    n_queries, n_sets = qp.shape[0], sp.shape[0]
+    lb, cut = _gate(lb, cut, (n_queries, n_sets), dev)
+    min_a = torch.full((n_queries, n_sets, qp.shape[1]), torch.inf, device=dev)
+    min_b = torch.full((n_queries, n_sets, sp.shape[1]), torch.inf, device=dev)
+    multiquery_minscan(qp, q2, sp, b2, min_a, min_b, lb=lb, cut=cut)
+    return min_a, min_b
+
+
+def multiquery_bucket_hd(
+    qs: torch.Tensor,
+    slab: torch.Tensor,
+    *,
+    valid_qs: torch.Tensor | None = None,
+    valid_slab: torch.Tensor | None = None,
+    lb: torch.Tensor | None = None,
+    cut: torch.Tensor | None = None,
+    directed: bool = False,
+    use_kernel: bool = True,
+) -> torch.Tensor:
+    """(Q, S) exact (directed) Hausdorff distances of each query vs each set.
+
+    Each pair is finalized like the single-pair paths: an empty query side
+    gives 0.0, an empty set side +inf.  Gated pairs come back +inf, except
+    under ``directed`` with an all-invalid query, whose 0.0 wins.
+    ``use_kernel=False`` runs the plain version on any device.
+    """
+    scan = multiquery_min_sqdists if use_kernel else multiquery_min_sqdists_mirror
+    min_a, min_b = scan(qs, slab, valid_qs=valid_qs, valid_slab=valid_slab, lb=lb, cut=cut)
+    h_a = _finalize_lanes(min_a, None if valid_qs is None else valid_qs[:, None, :])
     if directed:
         return h_a
     return torch.maximum(h_a, _finalize_lanes(min_b, valid_slab))

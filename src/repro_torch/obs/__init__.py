@@ -1,14 +1,17 @@
 """``repro_torch.obs`` — spans, events and metrics.
 
 The port's own copies of ``repro.obs.trace`` and ``repro.obs.metrics``
-(the cascade's and the store's span and event names are the reference's).
-Tracing is off by default; a disabled site costs one flag check.  The
-reference's export/report helpers and its XLA profiler bridge are not
-ported yet.
+(the span, event and metric names are the reference's).  Tracing is off by
+default; a disabled site costs one flag check.  The reference's
+export/report helpers and its XLA profiler bridge are not ported yet.
 """
-from repro_torch.obs.metrics import MetricsRegistry, record_stats, registry
+from repro_torch.obs.metrics import Counter, Gauge, Histogram, MetricsRegistry, record_stats, registry
 from repro_torch.obs.trace import (
+    Span,
+    bind,
     capture,
+    current_rid,
+    current_span_id,
     disable,
     drain,
     enable,
@@ -16,10 +19,16 @@ from repro_torch.obs.trace import (
     event,
     events,
     exception_chain,
+    new_rid,
     span,
+    start_span,
 )
 
 __all__ = [
+    "Span",
+    "Counter",
+    "Gauge",
+    "Histogram",
     "MetricsRegistry",
     "registry",
     "record_stats",
@@ -27,7 +36,12 @@ __all__ = [
     "disable",
     "enabled",
     "capture",
+    "new_rid",
+    "current_rid",
+    "current_span_id",
+    "bind",
     "span",
+    "start_span",
     "event",
     "events",
     "drain",

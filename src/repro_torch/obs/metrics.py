@@ -1,8 +1,6 @@
-"""Typed metrics — counters and log-spaced-bucket histograms.
+"""Typed metrics — counters, gauges, log-spaced-bucket histograms.
 
-The port's own copy of the part of ``repro/obs/metrics.py`` that the
-cascade, the store and span finishing use (same names and buckets).  The
-reference's gauges and Prometheus export come with ``serve/``.
+The port's own copy of ``repro/obs/metrics.py`` (same names and buckets).
 
 The registry is the single source of truth the ad-hoc ``stats`` dicts
 (cascade / multiquery / engine) and the training ``Heartbeat`` fold into:
@@ -10,8 +8,12 @@ instrumented sites update named instruments here when tracing is enabled,
 and every finished span auto-observes into ``span.<name>.s``.
 
 Zero dependencies, thread-safe (one lock per instrument — contention is
-nil at the rates the repro emits); :meth:`MetricsRegistry.snapshot` reads
-it as a plain nested dict for tests/JSON.
+nil at the rates the repro emits), and two export surfaces:
+
+- :meth:`MetricsRegistry.snapshot` — plain nested dict for tests/JSON.
+- :meth:`MetricsRegistry.to_prometheus` — Prometheus text exposition
+  (``# TYPE`` lines, cumulative ``_bucket{le=...}`` + ``_sum``/``_count``
+  for histograms) so a scrape endpoint is a ``return to_prometheus()``.
 
 Histogram buckets are **fixed log-spaced** boundaries, 3 per decade from
 1e-6 to 1e3 (1·10ᵏ, 2.15·10ᵏ, 4.64·10ᵏ) — 28 buckets spanning
@@ -24,7 +26,7 @@ from __future__ import annotations
 import threading
 from bisect import bisect_left
 
-__all__ = ["Counter", "Histogram", "MetricsRegistry", "registry", "DEFAULT_BUCKETS"]
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "registry", "DEFAULT_BUCKETS"]
 
 # 3 buckets/decade, 1e-6 .. 1e3: [1e-6, 2.154e-6, 4.642e-6, 1e-5, ...]
 DEFAULT_BUCKETS: tuple[float, ...] = tuple(
@@ -57,11 +59,38 @@ class Counter:
         return {"type": "counter", "unit": self.unit, "value": self._value}
 
 
+class Gauge:
+    """Last-write-wins level (queue depth, corpus size, deadline margin)."""
+
+    __slots__ = ("name", "unit", "_value", "_lock")
+
+    def __init__(self, name: str, unit: str = ""):
+        self.name = name
+        self.unit = unit
+        self._value = 0.0
+        self._lock = threading.Lock()
+
+    def set(self, value: float) -> None:
+        with self._lock:
+            self._value = float(value)
+
+    def add(self, delta: float) -> None:
+        with self._lock:
+            self._value += delta
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+    def snapshot(self) -> dict:
+        return {"type": "gauge", "unit": self.unit, "value": self._value}
+
+
 class Histogram:
     """Fixed-boundary histogram (log-spaced, see DEFAULT_BUCKETS).
 
-    Counts are per-interval (not cumulative).  ``observe`` is
-    O(log n_buckets).
+    Counts are per-interval (not cumulative) internally; the Prometheus
+    exposition cumulates on render.  ``observe`` is O(log n_buckets).
     """
 
     __slots__ = ("name", "unit", "bounds", "_counts", "_sum", "_count", "_min", "_max", "_lock")
@@ -111,6 +140,11 @@ class Histogram:
             }
 
 
+def _prom_name(name: str) -> str:
+    """metric names like ``span.index.search.s`` → ``span_index_search_s``."""
+    return "".join(c if (c.isalnum() or c == "_") else "_" for c in name)
+
+
 class MetricsRegistry:
     """Get-or-create home for named instruments.
 
@@ -138,6 +172,9 @@ class MetricsRegistry:
     def counter(self, name: str, unit: str = "") -> Counter:
         return self._get(name, Counter, unit=unit)
 
+    def gauge(self, name: str, unit: str = "") -> Gauge:
+        return self._get(name, Gauge, unit=unit)
+
     def histogram(self, name: str, unit: str = "", bounds: tuple[float, ...] = DEFAULT_BUCKETS) -> Histogram:
         return self._get(name, Histogram, unit=unit, bounds=bounds)
 
@@ -151,6 +188,31 @@ class MetricsRegistry:
         """Drop every instrument (tests/benches isolate through this)."""
         with self._lock:
             self._instruments.clear()
+
+    def to_prometheus(self) -> str:
+        """Prometheus text exposition format, one block per instrument."""
+        lines: list[str] = []
+        with self._lock:
+            items = sorted(self._instruments.items())
+        for name, inst in items:
+            pname = _prom_name(name)
+            if isinstance(inst, (Counter, Gauge)):
+                kind = "counter" if isinstance(inst, Counter) else "gauge"
+                lines.append(f"# TYPE {pname} {kind}")
+                lines.append(f"{pname} {inst.value:g}")
+            elif isinstance(inst, Histogram):
+                lines.append(f"# TYPE {pname} histogram")
+                cum = 0
+                snap_counts = list(inst._counts)
+                for b, c in zip(inst.bounds, snap_counts):
+                    cum += c
+                    if c:  # sparse exposition: skip untouched interior buckets
+                        lines.append(f'{pname}_bucket{{le="{b:g}"}} {cum}')
+                cum += snap_counts[-1]
+                lines.append(f'{pname}_bucket{{le="+Inf"}} {cum}')
+                lines.append(f"{pname}_sum {inst.sum:g}")
+                lines.append(f"{pname}_count {inst.count}")
+        return "\n".join(lines) + ("\n" if lines else "")
 
 
 _REGISTRY = MetricsRegistry()

@@ -2,7 +2,8 @@
 ``repro_torch.obs``.
 
 The port's own copy of ``repro/obs/trace.py``: the same span and event
-names, record schema and API.  Left out: the lazy XLA profiler bridge
+names, record schema and API, ``start_span`` / ``bind`` for regions that
+cross a thread hop (the query engine's) included.  Left out: the lazy XLA profiler bridge
 (``enable(xla=True)`` opening a ``jax.profiler.TraceAnnotation`` per span),
 which has no counterpart here yet.
 
@@ -21,8 +22,9 @@ Design constraints (docs/api.md "Observability contract"):
   (rid, parent span id) pair lives in a :mod:`contextvars` context
   variable, so nesting is automatic within a thread/task.  A span opened
   with no ambient context mints a fresh rid — a bare ``search()`` call
-  still yields a correlated tree.  (The reference's ``start_span`` /
-  ``bind`` for regions that cross a thread hop come with ``serve/``.)
+  still yields a correlated tree.  :func:`bind` re-establishes the pair
+  across an executor hop, and :func:`start_span` opens a span that
+  outlives a lexical scope (the engine's admission → completion).
 - **One source of truth.**  On exit every span also feeds the default
   :class:`~repro_torch.obs.metrics.MetricsRegistry`: histogram
   ``span.<name>.s`` observes the duration and counter
@@ -53,7 +55,12 @@ __all__ = [
     "disable",
     "enabled",
     "capture",
+    "new_rid",
+    "current_rid",
+    "current_span_id",
+    "bind",
     "span",
+    "start_span",
     "event",
     "events",
     "drain",
@@ -149,9 +156,32 @@ def capture(*, jsonl=None):
             enable()
 
 
-def _new_rid() -> str:
+def new_rid() -> str:
     """Mint a fresh request id (process-unique, monotone)."""
     return f"r{next(_RIDS):08d}"
+
+
+def current_rid() -> str | None:
+    f = _CTX.get()
+    return f.rid if f is not None else None
+
+
+def current_span_id() -> int | None:
+    f = _CTX.get()
+    return f.span_id if f is not None else None
+
+
+@contextlib.contextmanager
+def bind(rid: str, parent_id: int | None = None):
+    """Re-establish (rid, parent span) across an explicit boundary — the
+    engine hops its flush onto a thread-pool executor, where no ambient
+    context exists; ``bind`` makes the cascade's spans land under the
+    flush span with the request's rid."""
+    token = _CTX.set(_Frame(rid, parent_id))
+    try:
+        yield
+    finally:
+        _CTX.reset(token)
 
 
 def exception_chain(e: BaseException) -> list[dict]:
@@ -206,20 +236,25 @@ def _emit(record: dict) -> None:
 
 
 class Span:
-    """One timed, attributed, correlated region; opened by :func:`span`."""
+    """One timed, attributed, correlated region.  Use via :func:`span`
+    (context manager) or :func:`start_span` (+ ``finish()``) when the
+    region outlives a lexical scope (the engine's admission→completion)."""
 
     __slots__ = (
         "name", "attrs", "rid", "span_id", "parent_id",
         "_t0", "_t_start", "_token", "_done", "status", "error",
     )
 
-    def __init__(self, name: str, rid: str | None, attrs: dict):
+    def __init__(self, name: str, rid: str | None, attrs: dict, parent_id: int | None = None):
         frame = _CTX.get()
         self.name = name
         self.attrs = attrs
-        self.rid = rid or (frame.rid if frame is not None else _new_rid())
+        self.rid = rid or (frame.rid if frame is not None else new_rid())
         self.span_id = next(_SPAN_IDS)
-        self.parent_id = frame.span_id if frame is not None else None
+        self.parent_id = (
+            parent_id if parent_id is not None
+            else (frame.span_id if frame is not None else None)
+        )
         self._token = None
         self._done = False
         self.status = "ok"
@@ -231,6 +266,14 @@ class Span:
         """Attach/overwrite attributes mid-span."""
         self.attrs.update(attrs)
         return self
+
+    def event(self, name: str, *, error: bool = False, **attrs) -> None:
+        """Point event correlated to THIS span (rid + span id)."""
+        _emit({
+            "type": "event", "name": name, "rid": self.rid,
+            "span_id": self.span_id, "t": time.time(),
+            "error": bool(error), "attrs": _jsonable(attrs),
+        })
 
     def __enter__(self) -> "Span":
         self._token = _CTX.set(_Frame(self.rid, self.span_id))
@@ -286,6 +329,9 @@ class _NoopSpan:
     def set(self, **attrs):
         return self
 
+    def event(self, name, *, error=False, **attrs) -> None:
+        return None
+
     def finish(self, exc=None) -> None:
         return None
 
@@ -299,6 +345,16 @@ def span(name: str, *, rid: str | None = None, **attrs):
     if not _STATE.enabled:
         return _NOOP
     return Span(name, rid, attrs)
+
+
+def start_span(name: str, *, rid: str | None = None, parent_id: int | None = None, **attrs):
+    """Start a span WITHOUT binding the ambient context — for regions that
+    outlive a lexical scope (close with ``.finish()``), e.g. the engine's
+    admission→completion.  Children must be parented explicitly via
+    :func:`bind` (or ``parent_id``)."""
+    if not _STATE.enabled:
+        return _NOOP
+    return Span(name, rid, attrs, parent_id=parent_id)
 
 
 def event(name: str, *, error: bool = False, rid: str | None = None, **attrs) -> None:

@@ -258,14 +258,20 @@ def test_backend_unavailable_moves_the_ladder_and_keeps_the_ids(corpus):
         search(q, port, K)
 
 
-@pytest.mark.parametrize("device_kind, ladder", [
-    ("cuda", ["batched_cuda"]),
-    ("cpu", ["batched_mirror", "dense", "fused_mirror", "tiled"]),
+@pytest.mark.parametrize("device_kind, first, ladder", [
+    pytest.param("cuda", None, ["batched_cuda"], id="cuda-ladder0"),
+    pytest.param("cpu", None, ["batched_mirror", "dense", "fused_mirror", "multiquery_mirror", "tiled"],
+                 id="cpu-ladder1"),
+    pytest.param("cpu", "multiquery_cuda",
+                 ["multiquery_cuda", "batched_mirror", "dense", "fused_mirror", "multiquery_mirror", "tiled"],
+                 id="cpu-multiquery_cuda"),
 ])
-def test_masked_backend_ladder_per_device(device_kind, ladder):
+def test_masked_backend_ladder_per_device(device_kind, first, ladder):
     """On the card the ladder is the kernel alone (no plain version takes
-    over a CUDA search); on the CPU the plain versions follow in order."""
-    assert cascade.masked_backend_ladder(resolver.resolve_masked_backend(device_kind), device_kind) == ladder
+    over a CUDA search); on the CPU the plain versions follow in order and
+    no kernel's backend (``*_cuda``) joins a ladder it does not lead."""
+    first = first or resolver.resolve_masked_backend(device_kind)
+    assert cascade.masked_backend_ladder(first, device_kind) == ladder
 
 
 @pytest.mark.parametrize("budget, cap", [(None, 40), (7, 7), (40, 40), (100, 40), (0, 0)])

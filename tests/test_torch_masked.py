@@ -27,9 +27,10 @@ from repro_torch.core import masked  # noqa: E402
 from repro_torch.core.fp_margin import fp_margin, fp_value_margin  # noqa: E402
 
 PORT_BACKENDS = sorted(masked.EXACT_MASKED_BACKENDS)
-BATCHED = ("batched_cuda", "batched_mirror")
+# The backends whose lanes are bitwise whatever the padding or batch.
+BATCHED = ("batched_cuda", "batched_mirror", "multiquery_cuda", "multiquery_mirror")
 # The reference backend each port backend is held to.
-REF_BACKEND = {"batched_cuda": "batched_mirror"}
+REF_BACKEND = {"batched_cuda": "batched_mirror", "multiquery_cuda": "multiquery_mirror"}
 
 
 def _t(x):
@@ -64,8 +65,10 @@ def _pair(seed, n_q, n_b, d, cap):
 
 
 def test_registry_is_this_slices_backends():
-    assert set(masked.EXACT_MASKED_BACKENDS) == {"dense", "tiled", "fused_mirror", "batched_cuda", "batched_mirror"}
+    assert set(masked.EXACT_MASKED_BACKENDS) == {"dense", "tiled", "fused_mirror", "batched_cuda", "batched_mirror",
+                                                 "multiquery_cuda", "multiquery_mirror"}
     assert masked.BATCHED_NATIVE_BACKENDS == ("batched_cuda", "batched_mirror")
+    assert masked.MULTIQUERY_NATIVE_BACKENDS == ("multiquery_cuda", "multiquery_mirror")
     with pytest.raises(ValueError, match="unknown masked exact backend"):
         masked.masked_exact_hd(_t(np.zeros((2, 2), np.float32)), _t(np.zeros((2, 2), np.float32)),
                                backend="batched_pallas")
