@@ -6,9 +6,10 @@
 Phases (each asserts; any failure exits non-zero):
   1. environment: torch/CUDA versions, the card's name and power limit,
      TF32 off for cuBLAS and cuDNN;
-  2. build: compile both kernels (the fused min-d² scan and the batched
-     bucket scan) from src/repro_torch/kernels/hausdorff/csrc/ into
-     build/kernels/, one nvcc each, started together;
+  2. build: compile the four kernels (the fused min-d² scan, the batched
+     and multi-query bucket scans, flash attention) from the csrc/ folders
+     under src/repro_torch/kernels/ into build/kernels/, one nvcc each,
+     started together;
   3. kernel vs plain version on the same CUDA tensors (fp32 and bf16, masks,
      empty sides, pruning, a grid whose CTAs walk several b-tiles), per
      min-d² entry within 2·(D+2)·eps32·scale², HD within fp_value_margin
@@ -22,7 +23,8 @@ Phases (each asserts; any failure exits non-zero):
      ground truth at 1M per side is cut for time);
   6. directed, partial and chamfer at 65,536 × 65,536, D = 256;
   7. CUDA-event times (median of 5 after warm-up) of the kernel, its bound,
-     its plain version and torch.cdist as a yardstick, with the kernel's
+     its plain version and torch.cdist as a yardstick (at the sweep shape
+     over 65,536-column chunks of b, each folded by amin), with the kernel's
      outputs held entry by entry against the plain version's at both timed
      shapes (and the masked, directed wrapper call at ProHD's sweep shape).
 Kernel 2 and the corpus search:
@@ -69,10 +71,30 @@ Kernel 3, search_batch and the serving layer:
      largest stage-2a pass, with its bound, its plain version (at Q = 2 on
      the full bucket) and Q calls of torch.cdist + amin as a yardstick.
 
+Kernel 4 and the LM serving path (TinyLlama-1.1B, random bf16 weights from
+the seed):
+  13. the flash-attention kernel against its plain version and a float64
+     oracle on CUDA tensors (causal and not, fp32 and bf16, GQA groups 1, 2
+     and 8, hd 64, 80 and 128, ragged Sq and Sk, 1 × 4,096 × 32/4 × 64),
+     and against the plain version at kv chunks 64 and 512, per entry
+     within the bound that flash_error derives (scripts/
+     flash_planted_faults.py shows faulty kernels failing it);
+  14. prefill_step at full width on 1 × 512 tokens (against the same model
+     in float64 through the plain functions), 8 × 4,096 and 1 × 32,768
+     tokens, each launching kernel 4 once per layer; one more (uncounted)
+     8 × 4,096 prefill with every kernel-4 call held entry by entry against
+     the plain version; serve_step at batch 32 with a 32,768-slot cache:
+     a 64-token prompt fed one token at a time (its last logits against
+     prefill_step's on the same prompt), then 32 greedy tokens;
+  15. CUDA-event times of kernel 4 at (8, 4,096) and (1, 32,768), 32 query
+     heads over 4 kv heads, hd 64, causal bf16, with its bound, its plain
+     version and scaled_dot_product_attention as a yardstick.
+
 Each main path (phases 4-6: set_distance; phase 8: search; phases 10 and
-10b: search_batch; phase 11: the served paths) runs with the kernels'
-launch counters set to 0 just before it and read just after; launches made
-only to compare a kernel with its plain version are taken back out.
+10b: search_batch; phase 11: the served paths; phase 14: each prefill_step
+and the decode loop) runs with the kernels' launch counters set to 0 just
+before it and read just after; launches made only to compare a kernel with
+its plain version are taken back out.
 Prints JSON lines; the last line is {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
 """
@@ -96,10 +118,17 @@ KERNEL2_SOURCE = "src/repro_torch/kernels/hausdorff/csrc/batched_minscan.cu"
 TPU_KERNEL2 = "src/repro/kernels/hausdorff/batched.py:74"
 KERNEL3_SOURCE = "src/repro_torch/kernels/hausdorff/csrc/multiquery_minscan.cu"
 TPU_KERNEL3 = "src/repro/kernels/hausdorff/batched.py:378"
+KERNEL4_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu"
+TPU_KERNEL4 = "src/repro/kernels/flash_attention/flash.py:38"
 # H100 SXM HBM3 rate from NVIDIA's data sheet (bytes/s).
 HBM_BYTES_PER_S = 3.35e12
 # FP32 lanes per SM on Hopper; one FMA = 2 FLOPs per lane per clock.
 FP32_LANES_PER_SM = 128
+# Dense bf16 tensor-core FLOPs per SM per clock on Hopper (4 tensor cores;
+# 132 SMs at 1,830 MHz give the data sheet's 989 TFLOP/s) and MUFU ex2
+# results per SM per clock.
+BF16_FLOP_PER_SM_CLK = 4096
+MUFU_PER_SM_CLK = 16
 
 DEVICE = "cuda"
 N_EXACT = 262_144
@@ -107,6 +136,7 @@ N_PROHD = 1_048_576
 N_VARIANT = 65_536
 D = 256
 SWEEP_QUERIES = 41_930
+CDIST_CHUNK = 65_536  # b-columns per torch.cdist call at the sweep shape (11 GB fp32)
 # The retrieval corpus: the repo's own corpus settings (benchmarks/tables.py,
 # clustered_sets with sizes 48..256 step 8, 32 clusters, spread 10, σ 0.5)
 # at the paper's D = 256; the query is 128 points around set 0's centroid.
@@ -123,6 +153,29 @@ K_SMALL = 5
 # Served pairwise: Random Clouds, a-side size and the b-side sizes (each twice).
 N_PAIR_A = 16_384
 PAIR_B_SIZES = (16_384, 12_288, 9_000, 4_096)
+# The LM path: TinyLlama-1.1B at full width.  LM_SHAPES' prefill_32k
+# (32 × 32,768) is cut to 8 × 4,096 and 1 × 32,768; decode_32k (batch 128,
+# cache 32,768: a 94.5 GB cache) to batch 32 (23.6 GB).
+LM_ARCH = "tinyllama-1.1b"
+PREFILL_SHAPES = ((8, 4_096), (1, 32_768))
+F64_PROMPT = 512
+DECODE_BATCH = 32
+DECODE_CACHE = 32_768
+DECODE_PROMPT = 64
+DECODE_NEW = 32
+# Phase 13's cases, (B, Sq, Sk, H, KV, hd, dtype, causal): groups 1, 2 and 8,
+# hd 64, 80 and 128, ragged Sq and Sk, and TinyLlama's heads at 4,096.
+FLASH_CASES = (
+    (2, 128, 128, 4, 4, 64, "float32", True),
+    (2, 128, 128, 4, 4, 64, "float32", False),
+    (1, 333, 333, 8, 4, 80, "bfloat16", True),
+    (2, 333, 1, 8, 1, 128, "float32", True),
+    (1, 1, 333, 32, 4, 64, "bfloat16", False),
+    (2, 200, 192, 16, 2, 128, "bfloat16", False),
+    (1, 513, 1000, 8, 8, 80, "float32", True),
+    (1, 4096, 4096, 32, 4, 64, "bfloat16", True),
+    (1, 4096, 4096, 32, 4, 64, "float32", True),
+)
 
 
 def emit(obj) -> None:
@@ -166,33 +219,35 @@ def finalize64(mins, valid):
     return float(torch.sqrt(torch.clamp(mins.max(), min=0.0)))
 
 
+def launchers() -> dict:
+    """The four kernels' launchers, by kernel name."""
+    from repro_torch.kernels.flash_attention import flash as F
+    from repro_torch.kernels.hausdorff import batched as KB
+    from repro_torch.kernels.hausdorff import hausdorff as K
+
+    return {"fused_minscan": K.fused_minscan, "batched_minscan": KB.batched_minscan,
+            "multiquery_minscan": KB.multiquery_minscan, "flash_fwd": F.flash_fwd}
+
+
 @contextlib.contextmanager
 def uncounted():
     """Leave the kernels' launch counters as they were: for comparison launches."""
-    from repro_torch.kernels.hausdorff import batched as KB
-    from repro_torch.kernels.hausdorff import hausdorff as K
-
-    n = K.fused_minscan.launches, KB.batched_minscan.launches, KB.multiquery_minscan.launches
+    n = counts()
     try:
         yield
     finally:
-        K.fused_minscan.launches, KB.batched_minscan.launches, KB.multiquery_minscan.launches = n
+        for name, fn in launchers().items():
+            fn.launches = n[name]
 
 
 def counts() -> dict:
-    """The three kernels' launch counters, by kernel name."""
-    from repro_torch.kernels.hausdorff import batched as KB
-    from repro_torch.kernels.hausdorff import hausdorff as K
-
-    return {"fused_minscan": K.fused_minscan.launches, "batched_minscan": KB.batched_minscan.launches,
-            "multiquery_minscan": KB.multiquery_minscan.launches}
+    """The four kernels' launch counters, by kernel name."""
+    return {name: fn.launches for name, fn in launchers().items()}
 
 
 def zero_counts() -> None:
-    from repro_torch.kernels.hausdorff import batched as KB
-    from repro_torch.kernels.hausdorff import hausdorff as K
-
-    K.fused_minscan.launches = KB.batched_minscan.launches = KB.multiquery_minscan.launches = 0
+    for fn in launchers().values():
+        fn.launches = 0
 
 
 def entry_err(k, p, valid=None) -> float:
@@ -258,25 +313,29 @@ def phase_env():
         "sms": props.multi_processor_count,
         "max_sm_mhz": max_sm_mhz,
         "fp32_peak_tflops": props.multi_processor_count * FP32_LANES_PER_SM * 2 * max_sm_mhz * 1e6 / 1e12,
+        "bf16_peak_tflops": props.multi_processor_count * BF16_FLOP_PER_SM_CLK * max_sm_mhz * 1e6 / 1e12,
+        "mufu_per_s": props.multi_processor_count * MUFU_PER_SM_CLK * max_sm_mhz * 1e6,
     }
     emit(env)
     return env
 
 
 def phase_build():
-    """Build the three kernels from the checkout, one nvcc each, started together."""
+    """Build the four kernels from the checkout, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash as F
     from repro_torch.kernels.hausdorff import batched as KB
     from repro_torch.kernels.hausdorff import hausdorff as K
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        for f in [pool.submit(K.build), pool.submit(KB.build), pool.submit(KB.build_multiquery)]:
+    with ThreadPoolExecutor(4) as pool:
+        for f in [pool.submit(K.build), pool.submit(KB.build), pool.submit(KB.build_multiquery),
+                  pool.submit(F.build)]:
             f.result()
     ptxas = {}
-    for name in ("fused_minscan", "batched_minscan", "multiquery_minscan"):
+    for name in launchers():
         logs = sorted(_build.BUILD_DIR.glob(f"{name}-*.log"))
         ptxas[name] = [ln.strip() for ln in logs[-1].read_text().splitlines()
                        if "registers" in ln or "spill" in ln] if logs else []
@@ -1353,10 +1412,23 @@ def phase_times(seed: int, env: dict) -> list[dict]:
             err = max(err, entry_err(km, pm, va))
             assert err <= tol, (label, "masked directed", err, tol)
             del km, pm
-        library_ms = None
         if label == "exact/variants":
             library_ms = cuda_ms(lambda: torch.cdist(a, b))
-            torch.cuda.empty_cache()
+        else:
+            # One cdist over all of b would write 176 GB: columns in chunks,
+            # each folded into the row mins and its own column mins by amin.
+            def library():
+                row = torch.full((n_a,), torch.inf, device=DEVICE)
+                cols = []
+                for j in range(0, n_b, CDIST_CHUNK):
+                    dist = torch.cdist(a, b[j:j + CDIST_CHUNK])
+                    row = torch.minimum(row, dist.amin(1))
+                    cols.append(dist.amin(0))
+                    del dist
+                return row, torch.cat(cols)
+
+            library_ms = cuda_ms(library, reps=3)
+        torch.cuda.empty_cache()
         flops = 2.0 * n_a * n_b * D
         nbytes = 4.0 * ((n_a + n_b) * D + 2 * (n_a + n_b))
         op_ms = flops / peak * 1e3
@@ -1372,11 +1444,311 @@ def phase_times(seed: int, env: dict) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# kernel 4 and the LM serving path
+# ---------------------------------------------------------------------------
+
+
+def weighted_abs_v(q, k, v, *, causal: bool):
+    """Σ_i w_i·|v_i| per output entry: the attention weights of (q, k) applied
+    to |v|, in fp32 (float64 for float64) with p left unrounded.  It scales
+    the p-rounding term of :func:`flash_error`."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash as F
+
+    wide = torch.promote_types(q.dtype, torch.float32)
+    sk = k.shape[1]
+    return F.flash_attention_plain(q.to(wide), k.to(wide), v.to(wide).abs(), causal=causal,
+                                   chunk=512 if sk % 512 == 0 else sk)
+
+
+def flash_error(out, want, abs_v, *, exact: bool = False) -> dict:
+    """One attention output held entry by entry against another computation
+    of it: ``want`` is the plain version's output, or (``exact``) the float64
+    oracle's.  ``abs_v`` is :func:`weighted_abs_v` on the same operands.
+
+    Per entry, with w = |want| and a = abs_v:
+      fp32:  |Δ| ≤ 2e-5 + 1e-4·w (the reference's own, tests/test_kernels.py:115).
+      bf16 against the plain version: add 2⁻⁷·w + 2⁻⁷·a.  Both round their
+        fp32 result to bf16, which parts them by at most one bf16 spacing at
+        w, ≤ 2⁻⁷·w.  Both round each weight p to bf16 (≤ 2⁻⁸·p each) before
+        P·V, but against the running max of their own key tiles (the kernel's
+        64, the plain version's chunk), so a weight may round two ways, ≤
+        2⁻⁷·p apart; over a row that moves the output by ≤ 2⁻⁷·Σ w_i·|v_i|.
+      bf16 against float64: add 2⁻⁸·w + (2⁻⁸ + 2⁻¹⁶)·a.  One output
+        rounding (half a spacing, ≤ 2⁻⁸ of the fp32 result, which lies within
+        2⁻⁸·a of w) and one rounding of each p, ≤ 2⁻⁸·p.
+    Returns the worst |Δ|, the smallest per-entry tolerance, the largest
+    |Δ| / tolerance (the check is that this is ≤ 1) and the number of
+    entries over their tolerance."""
+    import torch
+
+    dt = torch.promote_types(want.dtype, abs_v.dtype)
+    want = want.to(dt)
+    w, a = want.abs(), abs_v.to(dt)
+    diff = (out.to(dt) - want).abs()
+    tol = 2e-5 + 1e-4 * w
+    if out.dtype == torch.bfloat16:
+        tol = tol + (2.0 ** -8 * w + (2.0 ** -8 + 2.0 ** -16) * a if exact
+                     else 2.0 ** -7 * w + 2.0 ** -7 * a)
+    return {"max_abs_err": float(diff.max()), "tol": float(tol.min()),
+            "max_ratio": float((diff / tol).max()), "n_over": int((diff > tol).sum())}
+
+
+def phase_flash_vs_plain(seed: int) -> float:
+    import torch
+
+    from repro_torch.data.pointclouds import make_generator
+    from repro_torch.kernels.flash_attention import flash as F
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    gen = make_generator(seed + 13, DEVICE)
+    rows, worst = [], 0.0
+    for b, sq, sk, h, kv, hd, dtype_name, causal in FLASH_CASES:
+        dtype = getattr(torch, dtype_name)
+        q = torch.randn((b, sq, h, hd), generator=gen, device=DEVICE).to(dtype)
+        k = torch.randn((b, sk, kv, hd), generator=gen, device=DEVICE).to(dtype)
+        v = torch.randn((b, sk, kv, hd), generator=gen, device=DEVICE).to(dtype)
+        out = F.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert out.shape == q.shape and out.dtype == dtype and bool(torch.isfinite(out).all())
+        row = {"case": [b, sq, sk, h, kv, hd, dtype_name, causal]}
+        abs_v = weighted_abs_v(q, k, v, causal=causal)
+        chunks = (64, 512) if sk % 512 == 0 else (sk,)
+        for c in chunks:
+            e = flash_error(out, F.flash_attention_plain(q, k, v, causal=causal, chunk=c), abs_v)
+            assert e["max_ratio"] <= 1, (row, f"plain chunk {c}", e)
+            row[f"plain_chunk{c}"] = e
+            worst = max(worst, e["max_abs_err"])
+        want = attention_ref(q.double(), k.double(), v.double(), causal=causal)
+        e = flash_error(out, want, abs_v, exact=True)
+        assert e["max_ratio"] <= 1, (row, "float64", e)
+        row["float64"] = e
+        rows.append(row)
+        worst = max(worst, e["max_abs_err"])
+        del q, k, v, out, want, abs_v
+    torch.cuda.empty_cache()
+    emit({"phase": "flash_vs_plain", "cases": rows, "max_abs_err": worst})
+    return worst
+
+
+def bf16_logit_tolerance(n_layers: int) -> float:
+    """Relative L2 distance of a bf16 forward's logits from exact
+    arithmetic: each of its R bf16 roundings moves a value by at most
+    u = 2^-8 relative, with independent signs, so the errors add as √R·u.
+    R counts 14 per layer (3 in each RMSNorm, q/k/v, RoPE, p, the attention
+    output, the o and down products, SwiGLU's h, two residual adds) and 3
+    for the final norm.  Two bf16 computations: twice this."""
+    return (14 * n_layers + 3) ** 0.5 * 2.0 ** -8
+
+
+def rel_l2(a, b) -> float:
+    import torch
+
+    return float(torch.linalg.vector_norm(a.double() - b.double()) / torch.linalg.vector_norm(b.double()))
+
+
+@contextlib.contextmanager
+def flash_replaced(fn):
+    """Inside the block, ``models.layers`` calls ``fn`` for kernel 4's wrapper."""
+    from repro_torch.kernels.flash_attention import flash as F
+
+    wrapper = F.flash_attention
+    F.flash_attention = fn
+    try:
+        yield wrapper
+    finally:
+        F.flash_attention = wrapper
+
+
+def timed_prefill(model, tokens, cfg) -> tuple:
+    """(logits, wall seconds, kernel-4 launches) of one counted prefill_step."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    logits = T.prefill_step(model, tokens, cfg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = counts()
+    assert n["flash_fwd"] == cfg.n_layers, n
+    assert n["fused_minscan"] == n["batched_minscan"] == n["multiquery_minscan"] == 0, n
+    assert logits.shape == (tokens.shape[0], cfg.vocab) and logits.dtype == torch.float32
+    assert bool(torch.isfinite(logits).all())
+    return logits, dt, n["flash_fwd"]
+
+
+def phase_lm(seed: int) -> dict:
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import load_arch
+    from repro_torch.data import synth
+    from repro_torch.data.pointclouds import make_generator
+    from repro_torch.kernels.flash_attention import flash as F
+    from repro_torch.models import transformer as T
+
+    cfg = load_arch(LM_ARCH).config
+    gen = make_generator(seed + 14, DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = T.init_lm_params(gen, cfg)
+    torch.cuda.synchronize()
+    out = {"arch": LM_ARCH, "params_billions": cfg.params_billions(), "init_s": time.perf_counter() - t0,
+           "launches": 0}
+
+    # bf16 prefill against the same model in float64, through the plain functions.
+    prompt = synth.lm_batch(gen, cfg, 1, F64_PROMPT)["tokens"][:, :F64_PROMPT]
+    logits, dt, n = timed_prefill(model, prompt, cfg)
+    out["launches"] += n
+    cfg64 = dataclasses.replace(cfg, dtype=torch.float64)
+    model64 = T.TransformerLM(cfg64, device=DEVICE)
+    model64.load_state_dict(model.state_dict())
+    with uncounted(), flash_replaced(
+            lambda q, k, v, causal=True: F.flash_attention_plain(q, k, v, causal=causal, chunk=cfg.attn_chunk)):
+        logits64 = T.prefill_step(model64, prompt, cfg64)
+    del model64
+    torch.cuda.empty_cache()
+    tol = bf16_logit_tolerance(cfg.n_layers)
+    err = rel_l2(logits, logits64)
+    assert err <= tol, ("bf16 vs float64 prefill", err, tol)
+    out["float64"] = {"tokens": F64_PROMPT, "rel_l2": err, "tol": tol, "wall_s": dt,
+                      "argmax_equal": bool(torch.equal(logits.argmax(-1), logits64.argmax(-1)))}
+
+    # Counted prefills at the two cut prefill_32k shapes.
+    out["prefill"] = []
+    for b, s in PREFILL_SHAPES:
+        tokens = synth.lm_batch(gen, cfg, b, s)["tokens"][:, :s]
+        logits, dt, n = timed_prefill(model, tokens, cfg)
+        out["launches"] += n
+        out["prefill"].append({"batch": b, "seq": s, "wall_s": dt, "tokens_per_s": b * s / dt,
+                               "launches": n})
+        if (b, s) == PREFILL_SHAPES[0]:
+            held_tokens, held_logits = tokens, logits
+        del tokens, logits
+        torch.cuda.empty_cache()
+
+    # The first shape once more, uncounted, every kernel-4 call held to the plain version.
+    held = []
+
+    def checked(q, k, v, causal=True):
+        got = wrapper(q, k, v, causal=causal)
+        e = flash_error(got, F.flash_attention_plain(q, k, v, causal=causal, chunk=cfg.attn_chunk),
+                        weighted_abs_v(q, k, v, causal=causal))
+        assert e["max_ratio"] <= 1, ("held prefill call", len(held), e)
+        held.append({"q": list(q.shape), "k": list(k.shape), **e})
+        return got
+
+    with uncounted(), flash_replaced(checked) as wrapper:
+        again = T.prefill_step(model, held_tokens, cfg)
+    assert len(held) == cfg.n_layers, len(held)
+    out["held_logits_equal"] = bool(torch.equal(again, held_logits))
+    del again, held_tokens, held_logits
+    torch.cuda.empty_cache()
+
+    # Decode: a 64-token prompt fed one token at a time, then greedy tokens.
+    prompt = synth.lm_batch(gen, cfg, DECODE_BATCH, DECODE_PROMPT)["tokens"][:, :DECODE_PROMPT]
+    cache = T.init_kv_cache(cfg, DECODE_BATCH, DECODE_CACHE, device=DEVICE)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(DECODE_PROMPT):
+        step_logits, nxt, cache = T.serve_step(model, cache, prompt[:, i], cfg)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    generated = []
+    for _ in range(DECODE_NEW):
+        generated.append(nxt)
+        _, nxt, cache = T.serve_step(model, cache, nxt, cfg)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    assert sum(counts().values()) == 0, counts()  # decode attention is plain
+    assert int(cache.length) == DECODE_PROMPT + DECODE_NEW
+    tokens = torch.stack(generated, 1)
+    assert tokens.shape == (DECODE_BATCH, DECODE_NEW)
+    assert int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab
+    logits = T.prefill_step(model, prompt, cfg)
+    out["launches"] += counts()["flash_fwd"]
+    err = rel_l2(step_logits, logits)
+    assert err <= 2 * tol, ("decode vs prefill logits", err, 2 * tol)
+    out["decode"] = {"batch": DECODE_BATCH, "cache": DECODE_CACHE, "prompt": DECODE_PROMPT,
+                     "new_tokens": DECODE_NEW, "prompt_fill_s": fill_s,
+                     "ms_per_step": gen_s / DECODE_NEW * 1e3,
+                     "tokens_per_s": DECODE_BATCH * DECODE_NEW / gen_s,
+                     "vs_prefill_rel_l2": err, "tol": 2 * tol,
+                     "argmax_agree": float((step_logits.argmax(-1) == logits.argmax(-1)).float().mean())}
+    out["held"] = held_summary("prefill {} x {}".format(*PREFILL_SHAPES[0]), held)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del cache, model
+    torch.cuda.empty_cache()
+    emit({"phase": "lm", **{k: v for k, v in out.items() if k != "held"}, "held": out["held"]})
+    return out
+
+
+def phase_times_flash(seed: int, env: dict) -> list[dict]:
+    import torch
+
+    from repro_torch.data.pointclouds import make_generator
+    from repro_torch.kernels.flash_attention import flash as F
+
+    cfg_h, cfg_kv, hd = 32, 4, 64  # TinyLlama's heads
+    gen = make_generator(seed + 15, DEVICE)
+    rows = []
+    for b, s in PREFILL_SHAPES:
+        q = torch.randn((b, s, cfg_h, hd), generator=gen, device=DEVICE).to(torch.bfloat16)
+        k = torch.randn((b, s, cfg_kv, hd), generator=gen, device=DEVICE).to(torch.bfloat16)
+        v = torch.randn((b, s, cfg_kv, hd), generator=gen, device=DEVICE).to(torch.bfloat16)
+        out = torch.empty_like(q)
+        with uncounted():
+            ms = cuda_ms(lambda: F.flash_fwd(q, k, v, out, causal=True))
+        plain = {}
+
+        def plain_fn():
+            plain["out"] = F.flash_attention_plain(q, k, v, causal=True)
+
+        plain_ms = cuda_ms(plain_fn, reps=3)
+        e = flash_error(out, plain["out"], weighted_abs_v(q, k, v, causal=True))
+        assert e["max_ratio"] <= 1, ("timed kernel vs plain", b, s, e)
+        del plain["out"]
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        # The yardstick on its flash backend only: its math fallback would
+        # materialise a (B, H, S, S) score tensor (137 GB at 32,768).
+        with torch.nn.attention.sdpa_kernel(torch.nn.attention.SDPBackend.FLASH_ATTENTION):
+            library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True))
+        pairs = b * cfg_h * s * (s + 1) / 2
+        flops = 4.0 * hd * pairs
+        nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
+        op_ms = max(flops / (env["bf16_peak_tflops"] * 1e12), pairs / env["mufu_per_s"]) * 1e3
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        rows.append({"shape": [b, s, cfg_h, cfg_kv, hd], "label": f"prefill {b}x{s}", "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": library_ms, **e,
+                     "bound_ms": max(op_ms, byte_ms),
+                     "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+                     "flops_ms": flops / (env["bf16_peak_tflops"] * 1e12) * 1e3,
+                     "exp_ms": pairs / env["mufu_per_s"] * 1e3, "bytes_ms": byte_ms,
+                     "achieved_tflops": flops / (ms * 1e-3) / 1e12})
+        del q, k, v, out, qt, kt, vt
+        torch.cuda.empty_cache()
+    emit({"phase": "times_flash", "rows": rows})
+    return rows
+
+
 def held_summary(path: str, scans: list) -> dict:
     """One path's wrapper calls held to the plain version: how many, the
-    worst |Δ| and the tightest tolerance any of them was held to."""
-    return {"path": path, "calls": len(scans), "max_abs_err": max(r["max_abs_err"] for r in scans),
-            "min_tol": min(r["tol"] for r in scans)}
+    worst |Δ|, the tightest tolerance any of them was held to and, where the
+    tolerance is per entry, the largest |Δ| / tolerance."""
+    out = {"path": path, "calls": len(scans), "max_abs_err": max(r["max_abs_err"] for r in scans),
+           "min_tol": min(r["tol"] for r in scans)}
+    if "max_ratio" in scans[0]:
+        out["max_ratio"] = max(r["max_ratio"] for r in scans)
+    return out
 
 
 def kernel_entry(name, route, source, replaces, launches, max_err, rows, held=()) -> dict:
@@ -1408,6 +1780,7 @@ def main() -> int:
     max_err = phase_kernel_vs_plain(args.seed)
     max_err2 = phase_batched_vs_plain(args.seed)
     max_err3 = phase_multiquery_vs_plain(args.seed)
+    max_err4 = phase_flash_vs_plain(args.seed)
 
     # Main path 1: the pairwise front door (exact, ProHD, variants).
     zero_counts()
@@ -1463,6 +1836,14 @@ def main() -> int:
     del corpus, batch
     torch.cuda.empty_cache()
 
+    # Main path 5: LM serving, TinyLlama-1.1B prefill and decode (counted
+    # per prefill_step call and over the decode loop inside phase_lm).
+    t0 = time.perf_counter()
+    lm = phase_lm(args.seed)
+    emit({"phase": "main_path", "path": "lm_serve", "launches": {"flash_fwd": lm["launches"]},
+          "wall_s": time.perf_counter() - t0})
+    rows4 = phase_times_flash(args.seed, env)
+
     def total(name):
         return sum(c[name] for c in (search_launches, batch_launches, serve_launches))
 
@@ -1473,6 +1854,8 @@ def main() -> int:
                      total("batched_minscan"), max_err2, rows2, held2),
         kernel_entry("multiquery_minscan", "cuda", KERNEL3_SOURCE, TPU_KERNEL3,
                      total("multiquery_minscan"), max_err3, rows3, held3),
+        kernel_entry("flash_fwd", "cuda", KERNEL4_SOURCE, TPU_KERNEL4, lm["launches"], max_err4, rows4,
+                     (lm["held"],)),
     ]})
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
     print(smi("name,power.limit"), flush=True)

@@ -1,5 +1,5 @@
-"""``repro_torch`` — the PyTorch/CUDA port of ProHD (the ``repro`` package's
-counterpart on an NVIDIA H100).
+"""``repro_torch`` — the PyTorch/CUDA port of ProHD and its LM scaffolding
+(the ``repro`` package's counterpart on an NVIDIA H100).
 
 Module layout mirrors ``repro`` so each counterpart is found by path::
 
@@ -16,6 +16,11 @@ Module layout mirrors ``repro`` so each counterpart is found by path::
     kernels/hausdorff/     the hand-written scans (CUDA C++): the fused
                            min-d² scan, the batched and the multi-query
                            bucket scans
+    kernels/flash_attention/  the hand-written flash-attention forward
+                           (CUDA C++), its plain version and oracle
+    configs/               LMConfig, shape cells and the dense LM configs
+    models/                RMSNorm, RoPE, attention, SwiGLU; the dense
+                           transformer's prefill_step and serve_step
     hd/                    the ``set_distance``, ``search`` and
                            ``search_batch`` front doors
     index/                 ``SetStore``, the certified cascade search and
@@ -25,7 +30,9 @@ Module layout mirrors ``repro`` so each counterpart is found by path::
     train/                 heartbeats and retry-with-recovery
     obs/, reliability/     spans and metrics; typed faults and injection
     data/pointclouds.py    the paper's synthetic clouds and the corpus
-    interop.py             reference configs, arrays and stores → port objects
+    data/synth.py          synthetic LM token batches
+    interop.py             reference configs, arrays, stores and LM
+                           parameters → port objects
 
 Device rule: entry points run on the card unless the caller asks for the
 CPU (``device="cpu"`` or CPU tensors); see :mod:`repro_torch.device`.

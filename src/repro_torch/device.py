@@ -5,23 +5,52 @@ Device rule: numpy inputs go to ``cuda`` unless the caller passes
 the caller asked for none of the CPU, the call raises — there is no silent
 CPU fallback.
 
-Precision rule: every matmul of the port is IEEE fp32 with fp32
+Precision rule of the Hausdorff path: every matmul is IEEE fp32 with fp32
 accumulation.  cuBLAS and cuDNN may use TF32 for fp32 inputs when their
 flags allow it; :func:`strict_fp32` turns both flags off and is called
 where the port does its matmuls.
+
+The LM path (``repro_torch.models``) is bf16 and exempt from the IEEE-fp32
+rule for its bf16 products; :func:`lm_precision` is its rule, held only for
+the duration of an LM entry point's call.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
 
-__all__ = ["strict_fp32", "resolve_device", "as_tensor", "as_mask"]
+__all__ = ["strict_fp32", "lm_precision", "resolve_device", "as_tensor", "as_mask"]
 
 
 def strict_fp32() -> None:
     """Pin fp32 matmuls to IEEE fp32 (no TF32 in cuBLAS or cuDNN)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def lm_precision():
+    """Inside the block (or the decorated call), the LM's rule; on exit the
+    flags are as they were.
+
+    * ``allow_tf32`` off: it governs the fp32 matmuls, which are the
+      reference's ``einsum(..., preferred_element_type=f32)`` contractions
+      of upcast bf16 operands (``layers.matmul_wide``: the logits and the
+      SwiGLU gate/up products) and the plain attention's products.
+    * ``allow_bf16_reduced_precision_reduction`` off: it governs the
+      bf16-output matmuls (the q/k/v/o projections and the SwiGLU down
+      product), which then accumulate in fp32 throughout.
+    """
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_tf32, matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_tf32 = False
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_tf32, matmul.allow_bf16_reduced_precision_reduction = saved
 
 
 def resolve_device(x=None, device=None) -> torch.device:

@@ -2,11 +2,11 @@
 
 ProHD has no weights: its state is the configuration and the data.  This
 module turns the fields of a reference ``HDConfig`` / ``ProHDConfig`` /
-``ServeConfig`` / ``EngineConfig``, passed as a plain dict
+``ServeConfig`` / ``EngineConfig`` / ``LMConfig``, passed as a plain dict
 (``dataclasses.asdict``), and numpy arrays (clouds,
-masks, projections, directions, a corpus) into the port's objects, so a
-test can build both packages' inputs from one dict and one set of arrays.
-It imports nothing of the reference package.
+masks, projections, directions, a corpus, an LM's parameters) into the
+port's objects, so a test can build both packages' inputs from one dict
+and one set of arrays.  It imports nothing of the reference package.
 """
 from __future__ import annotations
 
@@ -16,10 +16,12 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.configs.base import LMConfig
 from repro_torch.core.prohd import ProHDConfig
 from repro_torch.device import as_tensor
 from repro_torch.hd.config import HDConfig
 from repro_torch.index.store import SetStore
+from repro_torch.models.transformer import TransformerLM
 from repro_torch.serve.engine import EngineConfig
 from repro_torch.serve.server import ServeConfig
 
@@ -35,6 +37,8 @@ __all__ = [
     "cloud",
     "mask",
     "store_from_reference",
+    "lm_config_from_dict",
+    "lm_params_from_reference",
 ]
 
 # Reference name → port name, where they differ (front-door backends and
@@ -125,3 +129,27 @@ def store_from_reference(directions: np.ndarray, sets, *, min_bucket: int = 8,
                      min_bucket=min_bucket, device=device)
     store.add_many([np.asarray(s, np.float32) for s in sets])
     return store
+
+
+def lm_config_from_dict(d: dict[str, Any]) -> LMConfig:
+    """A port ``LMConfig`` from a reference ``LMConfig``'s fields; its
+    dtype (a jnp scalar type or any numpy-understood dtype) becomes the
+    ``torch.dtype`` of the same name."""
+    kw = _fields(LMConfig, d)
+    if "dtype" in kw:
+        kw["dtype"] = getattr(torch, np.dtype(kw["dtype"]).name)
+    return LMConfig(**kw)
+
+
+def lm_params_from_reference(params_np: dict, cfg: LMConfig, *, device=None) -> TransformerLM:
+    """A ``TransformerLM`` holding exactly the reference's parameter values:
+    ``params_np`` is the reference's param pytree as numpy arrays
+    (``jax.tree.map(np.asarray, params)``), ``jax.random`` having drawn
+    them.  Values pass through fp32 (exact for bf16) into ``cfg.dtype``."""
+    flat = {k: v for k, v in params_np.items() if k != "layers"}
+    flat.update({f"layers.{k}": v for k, v in params_np["layers"].items()})
+    model = TransformerLM(cfg, device=device)
+    model.load_state_dict(
+        {k: torch.from_numpy(np.array(v, np.float32)).to(cfg.dtype) for k, v in flat.items()},
+        strict=True)
+    return model

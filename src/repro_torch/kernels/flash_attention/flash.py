@@ -1,0 +1,177 @@
+"""Flash attention (forward): the hand-written CUDA kernel, its launcher, its
+wrapper and its plain version.
+
+Counterpart of ``repro/kernels/flash_attention/flash.py`` (the Pallas
+``_flash_kernel``).  All four functions compute the chunked online-softmax
+recurrence of the reference's ``models/layers.py`` ``causal_attention``:
+scores ``(q·kᵀ in fp32) · 1/√hd``, causal masking with the ``-1e30``
+sentinel, running ``(acc, m, l)`` in fp32, ``p`` rounded to v's dtype
+before the P·V product, and ``acc / max(l, 1e-30)`` cast to q's dtype.
+
+* :func:`flash_fwd` launches ``csrc/flash_fwd.cu`` on CUDA tensors (built
+  from the checkout at first call, launched on PyTorch's current stream,
+  never synchronising); ``flash_fwd.launches`` counts its launches.
+* :func:`flash_attention` is the wrapper: the kernel on CUDA tensors, the
+  plain version on CPU tensors, never the one in place of the other.
+* :func:`flash_attention_plain` follows the reference's op sequence chunk
+  by chunk (it also serves ``layers.causal_attention`` on the CPU, window
+  and query offset included).
+
+k and v may carry fewer heads than q (GQA): query head h reads kv head
+``h // (H // KV)``.  The kernel indexes it; the plain version expands k
+and v as the reference's ``_expand_kv`` does (:func:`expand_kv`).
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _build
+
+__all__ = ["NEG", "HEAD_DIMS", "SOURCE", "build", "expand_kv", "flash_fwd", "flash_attention",
+           "flash_attention_plain"]
+
+NEG = -1e30  # large-finite: no inf − inf in the online softmax
+HEAD_DIMS = (64, 80, 128)
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
+_MAX_GRID_Y = 65535
+
+_lib: ctypes.CDLL | None = None
+
+
+def build() -> ctypes.CDLL:
+    """Compile (if needed) and load the kernel library."""
+    global _lib
+    if _lib is None:
+        lib = _build.load_library("flash_fwd", [SOURCE])
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.flash_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, p]
+        lib.flash_fwd.restype = i
+        _lib = lib
+    return _lib
+
+
+def _check(q, k, v, out) -> None:
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"flash_fwd takes CUDA tensors, got {dev}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash_fwd takes float32 or bfloat16, got {q.dtype}")
+    for name, t in (("k", k), ("v", v), ("out", out)):
+        if t.device != dev or t.dtype != q.dtype:
+            raise ValueError(f"{name} must be {q.dtype} on {dev}, got {t.dtype} on {t.device}")
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape or out.shape != q.shape:
+        raise ValueError(f"need q/out (B, Sq, H, hd) and k, v (B, Sk, KV, hd); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}, {tuple(out.shape)}")
+    b, _, h, hd = q.shape
+    if k.shape[0] != b or k.shape[3] != hd:
+        raise ValueError(f"k, v {tuple(k.shape)} do not match q {tuple(q.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not supported; the kernel has {HEAD_DIMS}")
+    if k.shape[2] == 0 or h % k.shape[2]:
+        raise ValueError(f"{h} query heads do not divide into {k.shape[2]} kv heads")
+    if k.shape[1] == 0:
+        raise ValueError("k and v hold no keys")
+    if b * h > _MAX_GRID_Y:
+        raise ValueError(f"B·H = {b * h} exceeds the grid's {_MAX_GRID_Y}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, *,
+              causal: bool = True) -> None:
+    """One launch: attention of q (B, Sq, H, hd) over k, v (B, Sk, KV, hd)
+    into ``out`` (B, Sq, H, hd).  All contiguous, 16-byte aligned, one
+    dtype (float32 or bfloat16) on one CUDA device; hd ∈ ``HEAD_DIMS``."""
+    _check(q, k, v, out)
+    b, sq, h, hd = q.shape
+    if b == 0 or sq == 0:
+        return
+    fn = build().flash_fwd
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 int(q.dtype == torch.bfloat16), b, sq, k.shape[1], h, k.shape[2], hd,
+                 1.0 / (hd ** 0.5), int(causal), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_fwd launch failed: CUDA error {err}")
+    flash_fwd.launches += 1
+
+
+flash_fwd.launches = 0
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Forward attention, q (B, Sq, H, hd), k/v (B, Sk, KV, hd) → (B, Sq, H, hd)
+    in q's dtype.  CUDA tensors go through the kernel (or the call raises);
+    CPU tensors through :func:`flash_attention_plain`."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    flash_fwd(q, k, v, out, causal=causal)
+    return out
+
+
+def expand_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
+    """(B, S, KV, hd) → (B, S, KV·groups, hd), each kv head repeated
+    ``groups`` times in place (the reference's ``layers._expand_kv``)."""
+    return k if groups == 1 else k.repeat_interleave(groups, dim=2)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          causal: bool = True, chunk: int = 512, q_offset: int = 0,
+                          window: int | None = None) -> torch.Tensor:
+    """The kernel's plain version: the reference's chunked recurrence
+    (``layers.causal_attention``), op for op, over kv chunks of ``chunk``
+    keys; Sk must be a multiple of ``min(chunk, Sk)``.  Products are fp32
+    (float64 for float64 inputs) with p rounded to v's dtype before P·V.
+    ``q_offset`` is q[0]'s absolute position and ``window`` a sliding
+    window, both of the causal mask."""
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    if kv == 0 or h % kv:
+        raise ValueError(f"{h} query heads do not divide into {kv} kv heads")
+    if window is not None and not causal:
+        raise ValueError("a window applies to causal attention only")
+    k = expand_kv(k, h // kv)
+    v = expand_kv(v, h // kv)
+    scale = 1.0 / (hd ** 0.5)
+    chunk = min(chunk, sk)
+    n_chunks = sk // chunk if chunk else 0
+    if chunk == 0 or n_chunks * chunk != sk:
+        raise ValueError(f"Sk={sk} not divisible by chunk={chunk}")
+    wide = torch.promote_types(q.dtype, torch.float32)
+    qw = q.to(wide)
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    acc = torch.zeros((b, h, sq, hd), dtype=wide, device=q.device)
+    m = torch.full((b, h, sq), NEG, dtype=wide, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=wide, device=q.device)
+    for j in range(n_chunks):
+        k_j = k[:, j * chunk:(j + 1) * chunk]
+        v_j = v[:, j * chunk:(j + 1) * chunk]
+        s = torch.einsum("bqhd,bchd->bhqc", qw, k_j.to(wide)) * scale
+        if causal:
+            k_pos = j * chunk + torch.arange(chunk, device=q.device)
+            mask = q_pos[:, None] >= k_pos[None, :]
+            if window is not None:
+                mask &= (q_pos[:, None] - k_pos[None, :]) < window
+            s = torch.where(mask[None, None], s, NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqc,bchd->bhqd", p.to(v.dtype).to(wide), v_j.to(wide))
+        l = l * corr + p.sum(dim=-1)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)

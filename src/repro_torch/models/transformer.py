@@ -1,0 +1,211 @@
+"""Decoder-only transformer LM of the port: prefill and cached decode.
+
+Counterpart of ``repro/models/transformer.py`` for the dense LMs' serving
+path.  :class:`TransformerLM` holds the reference's parameter dict under
+the same names and shapes — ``embed``, ``out``, ``final_norm`` and
+``layers.{ln1, ln2, wq, wk, wv, wo, wi_gate, wi_up, wo_ffn}`` stacked on a
+leading L axis — so weights carry across name for name
+(``repro_torch.interop.lm_params_from_reference``).  The functions keep the
+reference's names and signatures, with the module in place of the params
+pytree.
+
+The layer stack is a Python loop over L: ``lax.scan`` and
+``jax.checkpoint`` have no counterpart in a forward pass.  The KV cache is
+updated in place (the reference returns a new one).  Prefill attention
+runs through the hand-written flash kernel on the card (kernel 4, once per
+layer, see ``models.layers.causal_attention``); decode attention is plain
+PyTorch, as the reference's is plain JAX.  ``lm_loss``, the MoE blocks and
+the sharding specs wait with training, MoE and sharding.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import LMConfig
+from repro_torch.device import as_tensor, lm_precision, resolve_device
+from repro_torch.models import layers as L
+
+__all__ = ["TransformerLM", "init_lm_params", "lm_forward", "lm_logits", "prefill_step",
+           "KVCache", "init_kv_cache", "serve_step"]
+
+_LAYER_NAMES = ("ln1", "ln2", "wq", "wk", "wv", "wo", "wi_gate", "wi_up", "wo_ffn")
+
+
+def _param_shapes(cfg: LMConfig) -> dict[str, tuple[int, ...]]:
+    d, hd = cfg.d_model, cfg.head_dim
+    nl, h, kv, f, v = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab
+    return {
+        "embed": (v, d), "out": (d, v), "final_norm": (d,),
+        "layers.ln1": (nl, d), "layers.ln2": (nl, d),
+        "layers.wq": (nl, d, h * hd), "layers.wk": (nl, d, kv * hd),
+        "layers.wv": (nl, d, kv * hd), "layers.wo": (nl, h * hd, d),
+        "layers.wi_gate": (nl, d, f), "layers.wi_up": (nl, d, f), "layers.wo_ffn": (nl, f, d),
+    }
+
+
+class TransformerLM(nn.Module):
+    """A dense decoder-only LM's parameters (zeros until filled) on one
+    device: ``cuda`` unless ``device`` says otherwise.  Serving only: no
+    parameter takes a gradient."""
+
+    def __init__(self, cfg: LMConfig, *, device=None):
+        super().__init__()
+        if cfg.moe_experts:
+            raise NotImplementedError("MoE LMs are not ported yet (ROADMAP.md, Queue 1)")
+        dev = resolve_device(None, device)
+        self.cfg = cfg
+
+        def param(shape):
+            return nn.Parameter(torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                                requires_grad=False)
+
+        shapes = _param_shapes(cfg)
+        self.embed = param(shapes["embed"])
+        self.out = param(shapes["out"])
+        self.final_norm = param(shapes["final_norm"])
+        self.layers = nn.ParameterDict({n: param(shapes[f"layers.{n}"]) for n in _LAYER_NAMES})
+
+
+def init_lm_params(gen: torch.Generator, cfg: LMConfig) -> TransformerLM:
+    """A model on ``gen``'s device with the reference's initial values'
+    distributions: embed N(0, 1); every matrix N(0, 1/fan_in) with fan_in
+    its second-to-last dim; norms 0.  Drawn in fp32, stored in
+    ``cfg.dtype``.  ``jax.random``'s numbers themselves cannot be redrawn:
+    tests carry the reference's values across instead."""
+    model = TransformerLM(cfg, device=gen.device)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name in ("final_norm", "layers.ln1", "layers.ln2"):
+                continue
+            scale = 1.0 if name == "embed" else p.shape[-2] ** -0.5
+            x = torch.randn(p.shape, generator=gen, dtype=torch.float32, device=gen.device)
+            p.copy_(x * scale)
+    return model
+
+
+def _tokens(tokens, params: TransformerLM) -> torch.Tensor:
+    """Token ids on the model's device; ids from outside (numpy, lists)
+    are checked against the vocabulary."""
+    if not isinstance(tokens, torch.Tensor):
+        arr = np.asarray(tokens)
+        if arr.size and (arr.min() < 0 or arr.max() >= params.cfg.vocab):
+            raise ValueError(f"token ids must lie in [0, {params.cfg.vocab})")
+        tokens = arr
+    return as_tensor(tokens, params.embed.device)
+
+
+def _embed(params: TransformerLM, tokens: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    return torch.nn.functional.embedding(tokens, params.embed).to(cfg.dtype)
+
+
+def _attn_spec(cfg: LMConfig) -> L.AttnSpec:
+    return L.AttnSpec(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                      chunk=cfg.attn_chunk, window=cfg.window, unroll=cfg.unroll)
+
+
+def _layer(params: TransformerLM, i: int) -> dict[str, torch.Tensor]:
+    return {n: params.layers[n][i] for n in _LAYER_NAMES}
+
+
+def _layer_fwd(cfg: LMConfig, x, lp, positions):
+    """One transformer block (prefill path).  x: (B, S, D)."""
+    b, s_len, _ = x.shape
+    hd = cfg.head_dim
+    h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    q = torch.matmul(h, lp["wq"]).reshape(b, s_len, cfg.n_heads, hd)
+    k = torch.matmul(h, lp["wk"]).reshape(b, s_len, cfg.n_kv_heads, hd)
+    v = torch.matmul(h, lp["wv"]).reshape(b, s_len, cfg.n_kv_heads, hd)
+    q = L.rope(q, positions, cfg.rope_theta)
+    k = L.rope(k, positions, cfg.rope_theta)
+    attn = L.causal_attention(q, k, v, _attn_spec(cfg)).reshape(b, s_len, cfg.n_heads * hd)
+    x = x + torch.matmul(attn, lp["wo"]).to(x.dtype)
+    h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    return x + L.swiglu(h, lp["wi_gate"], lp["wi_up"], lp["wo_ffn"]).to(x.dtype)
+
+
+@torch.no_grad()
+@lm_precision()
+def lm_forward(params: TransformerLM, tokens, cfg: LMConfig):
+    """Token ids (B, S) → final hidden states (B, S, D) and the mean aux
+    loss (0 for a dense model)."""
+    tokens = _tokens(tokens, params)
+    x = _embed(params, tokens, cfg)
+    positions = torch.arange(tokens.shape[1], device=x.device)
+    for i in range(cfg.n_layers):
+        x = _layer_fwd(cfg, x, _layer(params, i), positions)
+    x = L.rmsnorm(x, params.final_norm, cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+@torch.no_grad()
+@lm_precision()
+def lm_logits(params: TransformerLM, hidden: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    """Hidden states (..., D) → logits (..., V), fp32."""
+    return L.matmul_wide(hidden, params.out)
+
+
+@torch.no_grad()
+def prefill_step(params: TransformerLM, tokens, cfg: LMConfig) -> torch.Tensor:
+    """Full-sequence forward for serving: the last position's logits (B, V), fp32."""
+    hidden, _ = lm_forward(params, tokens, cfg)
+    return lm_logits(params, hidden[:, -1], cfg)
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor       # (L, B, S, KV, hd)
+    v: torch.Tensor
+    length: torch.Tensor  # 0-d int32: number of valid positions
+
+
+def init_kv_cache(cfg: LMConfig, batch: int, seq_len: int, *, device=None) -> KVCache:
+    """An empty cache on ``device`` (``cuda`` unless told otherwise)."""
+    dev = resolve_device(None, device)
+    shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                   v=torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                   length=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def _layer_decode(cfg: LMConfig, x, lp, kc, vc, length):
+    """One block for a single new token.  x: (B, D); kc/vc: (B, S, KV, hd),
+    written in place at position ``length`` — clamped to the last slot, as
+    the reference's ``dynamic_update_slice`` clamps."""
+    b, _ = x.shape
+    hd = cfg.head_dim
+    h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    q = torch.matmul(h, lp["wq"]).reshape(b, cfg.n_heads, hd)
+    k_new = torch.matmul(h, lp["wk"]).reshape(b, cfg.n_kv_heads, hd)
+    v_new = torch.matmul(h, lp["wv"]).reshape(b, cfg.n_kv_heads, hd)
+    pos = length.reshape(1)
+    q = L.rope(q[:, None], pos, cfg.rope_theta)[:, 0]
+    k_new = L.rope(k_new[:, None], pos, cfg.rope_theta)[:, 0]
+    slot = torch.clamp(pos, max=kc.shape[1] - 1).long()
+    kc.index_copy_(1, slot, k_new[:, None])
+    vc.index_copy_(1, slot, v_new[:, None])
+    attn = L.decode_attention(q, kc, vc, _attn_spec(cfg), length=length + 1)
+    x = x + torch.matmul(attn.reshape(b, -1), lp["wo"]).to(x.dtype)
+    h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    x = x + L.swiglu(h, lp["wi_gate"], lp["wi_up"], lp["wo_ffn"]).to(x.dtype)
+    return x, kc, vc
+
+
+@torch.no_grad()
+@lm_precision()
+def serve_step(params: TransformerLM, cache: KVCache, tokens, cfg: LMConfig):
+    """Decode one token per sequence.  tokens: (B,) int (the new inputs).
+
+    Returns (logits (B, V) fp32, greedy next-token ids (B,) int32 — the
+    first index on ties — and the cache, whose k and v were updated in
+    place, with ``length + 1``)."""
+    tokens = _tokens(tokens, params)
+    x = _embed(params, tokens, cfg)
+    for i in range(cfg.n_layers):
+        x, _, _ = _layer_decode(cfg, x, _layer(params, i), cache.k[i], cache.v[i], cache.length)
+    x = L.rmsnorm(x, params.final_norm, cfg.norm_eps)
+    logits = lm_logits(params, x, cfg)
+    next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    return logits, next_tok, KVCache(k=cache.k, v=cache.v, length=cache.length + 1)

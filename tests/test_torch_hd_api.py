@@ -213,7 +213,8 @@ def _imported_modules(path: Path):
 
 
 def test_port_and_chip_smoke_import_neither_jax_nor_reference():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "scripts" / "flash_planted_faults.py"]
     assert len(files) > 20
     for f in files:
         for mod in _imported_modules(f):
