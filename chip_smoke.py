@@ -7,9 +7,10 @@ Phases (each asserts; any failure exits non-zero):
   1. environment: torch/CUDA versions, the card's name and power limit,
      TF32 off for cuBLAS and cuDNN;
   2. build: compile the four kernels (the fused min-d² scan, the batched
-     and multi-query bucket scans, flash attention) from the csrc/ folders
-     under src/repro_torch/kernels/ into build/kernels/, one nvcc each,
-     started together;
+     and multi-query bucket scans, flash attention with its two routes:
+     bf16 on the tensor cores, fp32 on the CUDA cores) from the csrc/
+     folders under src/repro_torch/kernels/ into build/kernels/, one nvcc
+     per source, started together;
   3. kernel vs plain version on the same CUDA tensors (fp32 and bf16, masks,
      empty sides, pruning, a grid whose CTAs walk several b-tiles), per
      min-d² entry within 2·(D+2)·eps32·scale², HD within fp_value_margin
@@ -23,10 +24,11 @@ Phases (each asserts; any failure exits non-zero):
      ground truth at 1M per side is cut for time);
   6. directed, partial and chamfer at 65,536 × 65,536, D = 256;
   7. CUDA-event times (median of 5 after warm-up) of the kernel, its bound,
-     its plain version and torch.cdist as a yardstick (at the sweep shape
-     over 65,536-column chunks of b, each folded by amin), with the kernel's
-     outputs held entry by entry against the plain version's at both timed
-     shapes (and the masked, directed wrapper call at ProHD's sweep shape).
+     its plain version and torch.cdist + amin over rows and columns as a
+     yardstick (at the sweep shape over 65,536-column chunks of b), with
+     the kernel's outputs held entry by entry against the plain version's
+     at both timed shapes (and the masked, directed wrapper call at ProHD's
+     sweep shape).
 Kernel 2 and the corpus search:
   3b. the batched bucket scan against its plain version on CUDA tensors
      (shared and per-set queries, a shared slab, ragged caps, an
@@ -73,22 +75,27 @@ Kernel 3, search_batch and the serving layer:
 
 Kernel 4 and the LM serving path (TinyLlama-1.1B, random bf16 weights from
 the seed):
-  13. the flash-attention kernel against its plain version and a float64
-     oracle on CUDA tensors (causal and not, fp32 and bf16, GQA groups 1, 2
-     and 8, hd 64, 80 and 128, ragged Sq and Sk, 1 × 4,096 × 32/4 × 64),
-     and against the plain version at kv chunks 64 and 512, per entry
-     within the bound that flash_error derives (scripts/
+  13. both routes of the flash-attention kernel (bf16: wgmma; fp32: FFMA)
+     against the plain version and a float64 oracle on CUDA tensors (causal
+     and not, GQA groups 1, 2, 4, 8, hd 64, 80 and 128, Sq and Sk on either
+     side of a 128-key tile's edge and of the diagonal tile, Sk < 128, one
+     query row, TinyLlama's, StableLM-3B's and DeepSeek-67B's heads at
+     4,096), and against the plain version at kv chunks 64 and 512, per
+     entry within the bound that flash_error derives (scripts/
      flash_planted_faults.py shows faulty kernels failing it);
   14. prefill_step at full width on 1 × 512 tokens (against the same model
      in float64 through the plain functions), 8 × 4,096 and 1 × 32,768
-     tokens, each launching kernel 4 once per layer; one more (uncounted)
+     tokens, each launching kernel 4 once per layer, every launch on the
+     bf16 tensor-core route; one more (uncounted)
      8 × 4,096 prefill with every kernel-4 call held entry by entry against
      the plain version; serve_step at batch 32 with a 32,768-slot cache:
      a 64-token prompt fed one token at a time (its last logits against
      prefill_step's on the same prompt), then 32 greedy tokens;
-  15. CUDA-event times of kernel 4 at (8, 4,096) and (1, 32,768), 32 query
-     heads over 4 kv heads, hd 64, causal bf16, with its bound, its plain
-     version and scaled_dot_product_attention as a yardstick.
+  15. CUDA-event times of kernel 4 (bf16 route) at TinyLlama's (8, 4,096)
+     and (1, 32,768), 32 query heads over 4 kv heads of 64, and at
+     (1, 8,192) with StableLM-3B's 32/32 heads of 80 and DeepSeek-67B's
+     64/8 of 128, causal, with its bound, its plain version and
+     scaled_dot_product_attention as a yardstick.
 
 Each main path (phases 4-6: set_distance; phase 8: search; phases 10 and
 10b: search_batch; phase 11: the served paths; phase 14: each prefill_step
@@ -118,7 +125,8 @@ KERNEL2_SOURCE = "src/repro_torch/kernels/hausdorff/csrc/batched_minscan.cu"
 TPU_KERNEL2 = "src/repro/kernels/hausdorff/batched.py:74"
 KERNEL3_SOURCE = "src/repro_torch/kernels/hausdorff/csrc/multiquery_minscan.cu"
 TPU_KERNEL3 = "src/repro/kernels/hausdorff/batched.py:378"
-KERNEL4_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu"
+KERNEL4_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_fwd_sm90.cu"
+KERNEL4_FP32_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu"
 TPU_KERNEL4 = "src/repro/kernels/flash_attention/flash.py:38"
 # H100 SXM HBM3 rate from NVIDIA's data sheet (bytes/s).
 HBM_BYTES_PER_S = 3.35e12
@@ -163,8 +171,10 @@ DECODE_BATCH = 32
 DECODE_CACHE = 32_768
 DECODE_PROMPT = 64
 DECODE_NEW = 32
-# Phase 13's cases, (B, Sq, Sk, H, KV, hd, dtype, causal): groups 1, 2 and 8,
-# hd 64, 80 and 128, ragged Sq and Sk, and TinyLlama's heads at 4,096.
+# Phase 13's cases, (B, Sq, Sk, H, KV, hd, dtype, causal): groups 1, 2, 4 and
+# 8, hd 64, 80 and 128, ragged Sq and Sk, and the models' heads at 4,096.
+# bf16 goes through the tensor-core kernel (128-row query blocks, 128-key
+# tiles, 64 at hd 128), fp32 through the CUDA-core one (64 and 64).
 FLASH_CASES = (
     (2, 128, 128, 4, 4, 64, "float32", True),
     (2, 128, 128, 4, 4, 64, "float32", False),
@@ -173,8 +183,29 @@ FLASH_CASES = (
     (1, 1, 333, 32, 4, 64, "bfloat16", False),
     (2, 200, 192, 16, 2, 128, "bfloat16", False),
     (1, 513, 1000, 8, 8, 80, "float32", True),
+    # Sq = Sk = 300: the diagonal tile is the third, ragged at both edges.
+    (1, 300, 300, 8, 2, 64, "bfloat16", True),
+    (1, 300, 300, 8, 2, 64, "bfloat16", False),
+    (1, 300, 300, 8, 2, 128, "bfloat16", True),  # 64-key tiles: the diagonal is the fifth
+    # Sk < 128: one ragged key tile below queries that run past it.
+    (2, 200, 77, 8, 2, 64, "bfloat16", True),
+    (2, 200, 77, 8, 2, 64, "bfloat16", False),
+    # Sq one past a query block, Sk one short of a key tile.
+    (1, 129, 255, 8, 1, 128, "bfloat16", True),
+    # A single query row (causal: it sees key 0 alone).
+    (2, 1, 1000, 8, 4, 128, "bfloat16", True),
+    (2, 1, 1000, 8, 4, 80, "bfloat16", False),
     (1, 4096, 4096, 32, 4, 64, "bfloat16", True),
     (1, 4096, 4096, 32, 4, 64, "float32", True),
+    (1, 4096, 4096, 64, 8, 128, "bfloat16", True),  # DeepSeek-67B's heads
+    (1, 4096, 4096, 32, 32, 80, "bfloat16", True),  # StableLM-3B's heads
+)
+# Phase 15's timed shapes (B, S, H, KV, hd), causal bf16: TinyLlama's first.
+FLASH_TIMES = (
+    (8, 4_096, 32, 4, 64),
+    (1, 32_768, 32, 4, 64),
+    (1, 8_192, 32, 32, 80),
+    (1, 8_192, 64, 8, 128),
 )
 
 
@@ -232,12 +263,15 @@ def launchers() -> dict:
 @contextlib.contextmanager
 def uncounted():
     """Leave the kernels' launch counters as they were: for comparison launches."""
-    n = counts()
+    from repro_torch.kernels.flash_attention import flash as F
+
+    n, routes = counts(), route_counts()
     try:
         yield
     finally:
         for name, fn in launchers().items():
             fn.launches = n[name]
+        F.flash_fwd.route_launches.update(routes)
 
 
 def counts() -> dict:
@@ -245,9 +279,20 @@ def counts() -> dict:
     return {name: fn.launches for name, fn in launchers().items()}
 
 
+def route_counts() -> dict:
+    """Kernel 4's launches per route (``flash.route``)."""
+    from repro_torch.kernels.flash_attention import flash as F
+
+    return dict(F.flash_fwd.route_launches)
+
+
 def zero_counts() -> None:
+    from repro_torch.kernels.flash_attention import flash as F
+
     for fn in launchers().values():
         fn.launches = 0
+    for r in F.flash_fwd.route_launches:
+        F.flash_fwd.route_launches[r] = 0
 
 
 def entry_err(k, p, valid=None) -> float:
@@ -1413,7 +1458,13 @@ def phase_times(seed: int, env: dict) -> list[dict]:
             assert err <= tol, (label, "masked directed", err, tol)
             del km, pm
         if label == "exact/variants":
-            library_ms = cuda_ms(lambda: torch.cdist(a, b))
+            # The kernel's function: the distance matrix (17.2 GB fp32) and
+            # its row and column mins.
+            def library():
+                dist = torch.cdist(a, b)
+                return dist.amin(1), dist.amin(0)
+
+            library_ms = cuda_ms(library)
         else:
             # One cdist over all of b would write 176 GB: columns in chunks,
             # each folded into the row mins and its own column mins by amin.
@@ -1510,10 +1561,13 @@ def phase_flash_vs_plain(seed: int) -> float:
         q = torch.randn((b, sq, h, hd), generator=gen, device=DEVICE).to(dtype)
         k = torch.randn((b, sk, kv, hd), generator=gen, device=DEVICE).to(dtype)
         v = torch.randn((b, sk, kv, hd), generator=gen, device=DEVICE).to(dtype)
+        before = route_counts()
         out = F.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
         assert out.shape == q.shape and out.dtype == dtype and bool(torch.isfinite(out).all())
-        row = {"case": [b, sq, sk, h, kv, hd, dtype_name, causal]}
+        route = F.route(dtype, hd)
+        assert route_counts()[route] == before[route] + 1, (route, before, route_counts())
+        row = {"case": [b, sq, sk, h, kv, hd, dtype_name, causal], "route": route}
         abs_v = weighted_abs_v(q, k, v, causal=causal)
         chunks = (64, 512) if sk % 512 == 0 else (sk,)
         for c in chunks:
@@ -1563,7 +1617,8 @@ def flash_replaced(fn):
 
 
 def timed_prefill(model, tokens, cfg) -> tuple:
-    """(logits, wall seconds, kernel-4 launches) of one counted prefill_step."""
+    """(logits, wall seconds, kernel-4 launches) of one counted prefill_step;
+    every launch must take the bf16 tensor-core route."""
     import torch
 
     from repro_torch.models import transformer as T
@@ -1576,6 +1631,7 @@ def timed_prefill(model, tokens, cfg) -> tuple:
     dt = time.perf_counter() - t0
     n = counts()
     assert n["flash_fwd"] == cfg.n_layers, n
+    assert route_counts() == {"wgmma": cfg.n_layers, "ffma": 0}, route_counts()
     assert n["fused_minscan"] == n["batched_minscan"] == n["multiquery_minscan"] == 0, n
     assert logits.shape == (tokens.shape[0], cfg.vocab) and logits.dtype == torch.float32
     assert bool(torch.isfinite(logits).all())
@@ -1600,12 +1656,13 @@ def phase_lm(seed: int) -> dict:
     model = T.init_lm_params(gen, cfg)
     torch.cuda.synchronize()
     out = {"arch": LM_ARCH, "params_billions": cfg.params_billions(), "init_s": time.perf_counter() - t0,
-           "launches": 0}
+           "launches": 0, "route_launches": {"wgmma": 0, "ffma": 0}}
 
     # bf16 prefill against the same model in float64, through the plain functions.
     prompt = synth.lm_batch(gen, cfg, 1, F64_PROMPT)["tokens"][:, :F64_PROMPT]
     logits, dt, n = timed_prefill(model, prompt, cfg)
     out["launches"] += n
+    out["route_launches"]["wgmma"] += n
     cfg64 = dataclasses.replace(cfg, dtype=torch.float64)
     model64 = T.TransformerLM(cfg64, device=DEVICE)
     model64.load_state_dict(model.state_dict())
@@ -1626,6 +1683,7 @@ def phase_lm(seed: int) -> dict:
         tokens = synth.lm_batch(gen, cfg, b, s)["tokens"][:, :s]
         logits, dt, n = timed_prefill(model, tokens, cfg)
         out["launches"] += n
+        out["route_launches"]["wgmma"] += n
         out["prefill"].append({"batch": b, "seq": s, "wall_s": dt, "tokens_per_s": b * s / dt,
                                "launches": n})
         if (b, s) == PREFILL_SHAPES[0]:
@@ -1675,6 +1733,8 @@ def phase_lm(seed: int) -> dict:
     assert int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab
     logits = T.prefill_step(model, prompt, cfg)
     out["launches"] += counts()["flash_fwd"]
+    for r, n in route_counts().items():
+        out["route_launches"][r] += n
     err = rel_l2(step_logits, logits)
     assert err <= 2 * tol, ("decode vs prefill logits", err, 2 * tol)
     out["decode"] = {"batch": DECODE_BATCH, "cache": DECODE_CACHE, "prompt": DECODE_PROMPT,
@@ -1697,10 +1757,9 @@ def phase_times_flash(seed: int, env: dict) -> list[dict]:
     from repro_torch.data.pointclouds import make_generator
     from repro_torch.kernels.flash_attention import flash as F
 
-    cfg_h, cfg_kv, hd = 32, 4, 64  # TinyLlama's heads
     gen = make_generator(seed + 15, DEVICE)
     rows = []
-    for b, s in PREFILL_SHAPES:
+    for b, s, cfg_h, cfg_kv, hd in FLASH_TIMES:
         q = torch.randn((b, s, cfg_h, hd), generator=gen, device=DEVICE).to(torch.bfloat16)
         k = torch.randn((b, s, cfg_kv, hd), generator=gen, device=DEVICE).to(torch.bfloat16)
         v = torch.randn((b, s, cfg_kv, hd), generator=gen, device=DEVICE).to(torch.bfloat16)
@@ -1714,7 +1773,7 @@ def phase_times_flash(seed: int, env: dict) -> list[dict]:
 
         plain_ms = cuda_ms(plain_fn, reps=3)
         e = flash_error(out, plain["out"], weighted_abs_v(q, k, v, causal=True))
-        assert e["max_ratio"] <= 1, ("timed kernel vs plain", b, s, e)
+        assert e["max_ratio"] <= 1, ("timed kernel vs plain", b, s, hd, e)
         del plain["out"]
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         # The yardstick on its flash backend only: its math fallback would
@@ -1727,13 +1786,16 @@ def phase_times_flash(seed: int, env: dict) -> list[dict]:
         nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
         op_ms = max(flops / (env["bf16_peak_tflops"] * 1e12), pairs / env["mufu_per_s"]) * 1e3
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        rows.append({"shape": [b, s, cfg_h, cfg_kv, hd], "label": f"prefill {b}x{s}", "ms": ms,
+        bound_ms = max(op_ms, byte_ms)
+        rows.append({"shape": [b, s, cfg_h, cfg_kv, hd], "label": f"{b}x{s} {cfg_h}/{cfg_kv}x{hd}",
+                     "route": F.route(q.dtype, hd), "ms": ms,
                      "plain_ms": plain_ms, "library_ms": library_ms, **e,
-                     "bound_ms": max(op_ms, byte_ms),
+                     "bound_ms": bound_ms,
                      "bound_by": "operations" if op_ms >= byte_ms else "bytes",
                      "flops_ms": flops / (env["bf16_peak_tflops"] * 1e12) * 1e3,
                      "exp_ms": pairs / env["mufu_per_s"] * 1e3, "bytes_ms": byte_ms,
-                     "achieved_tflops": flops / (ms * 1e-3) / 1e12})
+                     "achieved_tflops": flops / (ms * 1e-3) / 1e12,
+                     "share_of_bound": bound_ms / ms, "vs_library": ms / library_ms})
         del q, k, v, out, qt, kt, vt
         torch.cuda.empty_cache()
     emit({"phase": "times_flash", "rows": rows})
@@ -1840,8 +1902,10 @@ def main() -> int:
     # per prefill_step call and over the decode loop inside phase_lm).
     t0 = time.perf_counter()
     lm = phase_lm(args.seed)
+    # Every prefill_step launch went through the bf16 tensor-core route.
+    assert lm["route_launches"] == {"wgmma": lm["launches"], "ffma": 0}, lm["route_launches"]
     emit({"phase": "main_path", "path": "lm_serve", "launches": {"flash_fwd": lm["launches"]},
-          "wall_s": time.perf_counter() - t0})
+          "route_launches": lm["route_launches"], "wall_s": time.perf_counter() - t0})
     rows4 = phase_times_flash(args.seed, env)
 
     def total(name):
@@ -1854,8 +1918,12 @@ def main() -> int:
                      total("batched_minscan"), max_err2, rows2, held2),
         kernel_entry("multiquery_minscan", "cuda", KERNEL3_SOURCE, TPU_KERNEL3,
                      total("multiquery_minscan"), max_err3, rows3, held3),
-        kernel_entry("flash_fwd", "cuda", KERNEL4_SOURCE, TPU_KERNEL4, lm["launches"], max_err4, rows4,
-                     (lm["held"],)),
+        {**kernel_entry("flash_fwd", "cuda", KERNEL4_SOURCE, TPU_KERNEL4, lm["launches"], max_err4, rows4,
+                        (lm["held"],)),
+         "routes": {"wgmma": {"dtype": "bfloat16", "source": KERNEL4_SOURCE, "replaces": TPU_KERNEL4,
+                              "launches": lm["route_launches"]["wgmma"]},
+                    "ffma": {"dtype": "float32", "source": KERNEL4_FP32_SOURCE, "replaces": TPU_KERNEL4,
+                             "launches": lm["route_launches"]["ffma"]}}},
     ]})
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
     print(smi("name,power.limit"), flush=True)

@@ -1,28 +1,31 @@
 #!/usr/bin/env python3
-"""Plant faults in the flash-attention kernel and show that chip_smoke's
-tolerance rejects each of them.
+"""Plant faults in the tensor-core flash-attention kernel and show that
+chip_smoke's tolerance rejects each of them.
 
     python3 scripts/flash_planted_faults.py [--seed 0]
 
-Builds copies of ``src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu``
-into a temporary directory, each with one fault planted (a key tile skipped
-or counted twice, a missing rescale of acc or l, the wrong kv head), one
-``nvcc`` each, started together.  Each copy and the untouched source run at
-TinyLlama's prefill shape (8 × 4,096, 32 query and 4 kv heads of 64, bf16),
-causal and not, and are held entry by entry to the plain version with
+Builds copies of ``src/repro_torch/kernels/flash_attention/csrc/flash_fwd_sm90.cu``
+(the bf16 route, ``flash.route`` ``"wgmma"``) into a temporary directory,
+each with one fault planted: the last or a middle key tile given no weight,
+the first tile's p counted twice in P·V, a missing rescale of acc or l, the
+wrong kv head, or the diagonal tile left unmasked; one ``nvcc`` each,
+started together.  Each copy and the untouched source run at TinyLlama's
+prefill shape (8 × 4,096, 32 query and 4 kv heads of 64, bf16), causal and
+not, and are held entry by entry to the plain version with
 ``chip_smoke.flash_error``, the check that phases 13-15 of ``chip_smoke.py``
 apply.  Prints one JSON line per (variant, case) and a summary line; exits
 0 when the untouched source passes every case and every fault fails every
-case.  Needs one CUDA card and ``nvcc``.
+case it can reach (the unmasked diagonal: the causal one; without the mask
+it is no fault).  Needs one CUDA card and ``nvcc``.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import json
-import subprocess
 import sys
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -31,18 +34,25 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as C  # noqa: E402  (puts src/ on the path)
 
 SHAPE = (8, 4_096, 32, 4, 64)  # B, S, H, KV, hd
-LOOP = "for (int kt = 0; kt < n_tiles; ++kt) {"
-ACC = "acc[i][j] = acc[i][j] * corr[i] + pv[i][j];"
+SOFTMAX = "c.softmax(kt * BN, row0, col0, Sk, masked(kt), causal, scale_log2);"
 # variant -> (text in the source, its replacement); each text occurs once.
 FAULTS = {
-    "skip_last_tile": (LOOP, "for (int kt = 0; kt < n_tiles - 1; ++kt) {"),
-    "skip_middle_tile": (LOOP, LOOP + "\n    if (kt == n_tiles / 2) continue;"),
-    "double_first_tile": (ACC, "acc[i][j] = acc[i][j] * corr[i] + (kt == 0 ? 2.f : 1.f) * pv[i][j];"),
-    "no_rescale_acc": (ACC, "acc[i][j] = acc[i][j] + pv[i][j];"),
-    "no_rescale_l": ("l[i] = l[i] * corr[i] + half_warp_sum(row_sum);",
-                     "l[i] = l[i] + half_warp_sum(row_sum);"),
+    "skip_last_tile": (SOFTMAX, "c.softmax(kt * BN, row0, col0, kt == n_tiles - 1 ? 0 : Sk, "
+                                "masked(kt) || kt == n_tiles - 1, causal, scale_log2);"),
+    "skip_middle_tile": (SOFTMAX, "c.softmax(kt * BN, row0, col0, kt == n_tiles / 2 ? 0 : Sk, "
+                                  "masked(kt) || kt == n_tiles / 2, causal, scale_log2);"),
+    "double_first_tile": ("c.softmax(0, row0, col0, Sk, masked(0), causal, scale_log2);",
+                          "c.softmax(0, row0, col0, Sk, masked(0), causal, scale_log2);\n"
+                          "    for (float& x : c.s) x *= 2.f;"),
+    "no_rescale_acc": ("for (int r = 0; r < N64; ++r) o64[r][i] *= corr[(i >> 1) & 1];",
+                       "for (int r = 0; r < N64; ++r) o64[r][i] *= 1.f;"),
+    "no_rescale_l": ("for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];",
+                     "for (int r = 0; r < 2; ++r) l[r] = l[r] + sum[r];"),
     "kv_head_mod": ("const int kvh = h / (H / KV);", "const int kvh = h % KV;"),
+    "diagonal_unmasked": ("if (col >= Sk || (causal && col > row)) s[i] = -CUDART_INF_F;",
+                          "if (col >= Sk) s[i] = -CUDART_INF_F;"),
 }
+CAUSAL_ONLY = {"diagonal_unmasked"}
 
 
 def build_variants(tmp: Path) -> dict:
@@ -51,24 +61,22 @@ def build_variants(tmp: Path) -> dict:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash as F
 
-    text = F.SOURCE.read_text()
-    procs = {}
+    text = F.SOURCE_SM90.read_text()
+    jobs = {}
     for name, (old, new) in {"none": ("", ""), **FAULTS}.items():
         if old:
             assert text.count(old) == 1, (name, text.count(old))
-        src = tmp / f"flash_fwd_{name}.cu"
+        src = tmp / f"flash_fwd_sm90_{name}.cu"
         src.write_text(text.replace(old, new) if old else text)
-        so = tmp / f"flash_fwd_{name}.so"
-        procs[name] = (so, subprocess.Popen([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(src)],
-                                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    ref = F.build().flash_fwd
+        jobs[name] = (src, tmp / f"flash_fwd_sm90_{name}.so")
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        for f in [pool.submit(_build.compile_library, [src], so) for src, so in jobs.values()]:
+            f.result()
+    ref = F.build().flash_fwd_sm90
     libs = {}
-    for name, (so, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
+    for name, (_, so) in jobs.items():
         lib = ctypes.CDLL(str(so))
-        lib.flash_fwd.argtypes, lib.flash_fwd.restype = ref.argtypes, ref.restype
+        lib.flash_fwd_sm90.argtypes, lib.flash_fwd_sm90.restype = ref.argtypes, ref.restype
         libs[name] = lib
     return libs
 
@@ -105,7 +113,8 @@ def main() -> int:
                     out = F.flash_attention(q, k, v, causal=causal)
                     e = C.flash_error(out, want, abs_v)
                     passed = e["max_ratio"] <= 1
-                    verdicts[(name, causal)] = passed == (name == "none")
+                    is_fault = name != "none" and (causal or name not in CAUSAL_ONLY)
+                    verdicts[(name, causal)] = passed != is_fault
                     C.emit({"variant": name, "causal": causal, "shape": list(SHAPE), "passed": passed,
                             "entries": out.numel(), **e})
                     del out

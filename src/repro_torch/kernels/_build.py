@@ -1,7 +1,9 @@
 """Build the port's CUDA sources into shared libraries, at first use.
 
 Each library is compiled from the checkout's own ``csrc/*.cu`` with
-``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the repository root,
+``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the repository root
+(a library of several sources: one ``nvcc`` per source, started together,
+then one link),
 named by a hash of its sources, the headers beside them (``csrc/*.cuh``)
 and the flags, so a changed source or header is rebuilt and an unchanged
 one is loaded as is.  The compiler's output (with
@@ -19,12 +21,12 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "load_library"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "compile_library", "find_nvcc", "load_library"]
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -43,6 +45,35 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def compile_library(sources: list[Path], out: Path) -> str:
+    """Compile ``sources`` into the shared library ``out``: one ``nvcc``
+    per source, all started together, then a link.  Returns the compiler's
+    output (ptxas's registers and spills); raises if a step fails."""
+    nvcc = find_nvcc()
+    if len(sources) == 1:
+        steps = [[nvcc, *NVCC_FLAGS, "-shared", "-o", str(out), str(sources[0])]]
+        objs = []
+    else:
+        objs = [out.with_name(f"{out.name}.{i}.o") for i in range(len(sources))]
+        steps = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)] for o, src in zip(objs, sources)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in steps]
+    texts = [proc.communicate()[0] for proc in procs]  # every process ends before any raise
+    log = "".join(texts)
+    for cmd, proc, text in zip(steps, procs, texts):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) on {cmd[-1]}:\n{text}")
+    if objs:
+        proc = subprocess.run([nvcc, "-shared", "-o", str(out), *map(str, objs)],
+                              capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        for o in objs:
+            o.unlink(missing_ok=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) linking {out.name}:\n{proc.stderr}")
+    return log
+
+
 def load_library(name: str, sources: list[Path]) -> ctypes.CDLL:
     """Compile ``sources`` (which may include the ``*.cuh`` headers beside
     them) into ``build/kernels/<name>-<hash>.so`` if that file is missing,
@@ -55,12 +86,6 @@ def load_library(name: str, sources: list[Path]) -> ctypes.CDLL:
     if not out.is_file():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {name}:\n{proc.stderr}"
-            )
+        out.with_suffix(".log").write_text(compile_library(list(sources), tmp))
         os.replace(tmp, out)
     return ctypes.CDLL(str(out))

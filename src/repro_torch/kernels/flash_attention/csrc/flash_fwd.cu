@@ -1,4 +1,7 @@
-// Flash attention, forward, for Hopper (sm_90a), plain C interface.
+// Flash attention, forward, fp32, on Hopper's CUDA cores (sm_90a), plain C
+// interface.  Route "ffma" of the launcher flash.flash_fwd; bf16 goes to
+// the tensor-core kernel of flash_fwd_sm90.cu (route "wgmma"), built into
+// the same library.
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` in
 // src/repro/kernels/flash_attention/flash.py:38 (wrapper `flash_attention`,
@@ -32,21 +35,18 @@
 //    key 0 is visible to every row from the first tile on.  Keys past Sk
 //    (the ragged edge) get no weight; rows past Sq are not written.  So no
 //    shape has to divide the tiles.
-//  * p enters l in fp32 and the P·V product rounded to v's dtype (bf16 on
-//    the model path), as both reference functions do.
+//  * p enters l and the P·V product in fp32 (v's dtype), as both reference
+//    functions do.
 //  * hd ∈ {64, 80, 128} (TinyLlama, StableLM-3B, DeepSeek-67B) as template
 //    instances; the launcher rejects any other.
 //
-// Bound on this card: the work is 4·hd FLOPs and one exp per visible
-// (q, k) pair on q, k, v, o read or written once, so the bf16 tensor-core
-// rate and the MUFU exp rate bound it (about equally at hd 64), far above
-// the bytes.  This first kernel runs the products on the CUDA cores, whose
-// fp32 FFMA rate is some 15× lower than the tensor cores': mma.sync or
-// wgmma for the bf16 products, TMA staging and warp specialisation are
-// left for later work.
+// Bound on this card: the work is 4·hd fp32 FLOPs and one exp per visible
+// (q, k) pair on q, k, v, o read or written once, so the CUDA cores' FFMA
+// rate bounds it, far above the bytes.  It stays on the CUDA cores because
+// Hopper's tensor cores take no fp32 operands, and TF32 would round q, k, v
+// and p to 10-bit mantissas, against the reference's fp32 contract.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math_constants.h>
 
 namespace {
@@ -66,22 +66,6 @@ template <> struct Elem<float> {
   }
   __device__ static float round(float x) { return x; }
   __device__ static float store(float x) { return x; }
-};
-
-template <> struct Elem<__nv_bfloat16> {
-  static constexpr int VEC = 8;
-  __device__ static void load(const __nv_bfloat16* p, float (&r)[VEC]) {
-    const uint4 x = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(h[e]);
-      r[2 * e] = f.x;
-      r[2 * e + 1] = f.y;
-    }
-  }
-  __device__ static float round(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
-  __device__ static __nv_bfloat16 store(float x) { return __float2bfloat16_rn(x); }
 };
 
 // Stage rows row0 .. row0+63 of one head (row r at src + r·stride) into
@@ -282,32 +266,21 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_hd(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
-                int H, int KV, int hd, float scale, int causal, cudaStream_t s) {
-  switch (hd) {
-    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, s);
-    case 80: return launch<T, 80>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, s);
-    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 }  // namespace
 
-// Launches one forward pass on `stream`.  dtype: 0 = fp32, 1 = bf16 (q, k,
-// v and o share it).  q, o: (B, Sq, H, hd); k, v: (B, Sk, KV, hd); all
-// contiguous and 16-byte aligned; KV divides H; Sk ≥ 1; B·H ≤ 65535.
-// scale is the reference's 1/√hd rounded to fp32.  Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for an hd
-// other than 64, 80, 128).
-extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, int dtype, int B,
-                         int Sq, int Sk, int H, int KV, int hd, float scale, int causal,
-                         void* stream) {
+// Launches one fp32 forward pass on `stream`.  q, o: (B, Sq, H, hd); k, v:
+// (B, Sk, KV, hd); all contiguous and 16-byte aligned; KV divides H;
+// Sk ≥ 1; B·H ≤ 65535.  scale is the reference's 1/√hd rounded to fp32.
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for an
+// hd other than 64, 80, 128).
+extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                         int Sk, int H, int KV, int hd, float scale, int causal, void* stream) {
   if (B <= 0 || Sq <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    return dispatch_hd<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, KV, hd, scale, causal, s);
+  switch (hd) {
+    case 64: return launch<float, 64>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, s);
+    case 80: return launch<float, 80>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, s);
+    case 128: return launch<float, 128>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return dispatch_hd<float>(q, k, v, o, B, Sq, Sk, H, KV, hd, scale, causal, s);
 }

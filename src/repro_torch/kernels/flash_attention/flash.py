@@ -1,24 +1,43 @@
-"""Flash attention (forward): the hand-written CUDA kernel, its launcher, its
-wrapper and its plain version.
+"""Flash attention (forward): the hand-written CUDA kernels, their launcher,
+the wrapper and the plain version.
 
 Counterpart of ``repro/kernels/flash_attention/flash.py`` (the Pallas
-``_flash_kernel``).  All four functions compute the chunked online-softmax
-recurrence of the reference's ``models/layers.py`` ``causal_attention``:
-scores ``(q·kᵀ in fp32) · 1/√hd``, causal masking with the ``-1e30``
-sentinel, running ``(acc, m, l)`` in fp32, ``p`` rounded to v's dtype
-before the P·V product, and ``acc / max(l, 1e-30)`` cast to q's dtype.
+``_flash_kernel``, ``flash.py:38``).  All of them compute the chunked
+online-softmax recurrence of the reference's ``models/layers.py``
+``causal_attention``: scores ``(q·kᵀ in fp32) · 1/√hd``, causal masking
+with the ``-1e30`` sentinel, running ``(acc, m, l)`` in fp32, ``p`` rounded
+to v's dtype before the P·V product, and ``acc / max(l, 1e-30)`` cast to
+q's dtype.
 
-* :func:`flash_fwd` launches ``csrc/flash_fwd.cu`` on CUDA tensors (built
-  from the checkout at first call, launched on PyTorch's current stream,
-  never synchronising); ``flash_fwd.launches`` counts its launches.
-* :func:`flash_attention` is the wrapper: the kernel on CUDA tensors, the
+* :func:`flash_fwd` launches one of two kernels, built from the checkout
+  into one library at first call, on PyTorch's current stream, never
+  synchronising.  :func:`route` picks the kernel from the dtype alone:
+
+  - ``"wgmma"`` (bf16, the model path): ``csrc/flash_fwd_sm90.cu``, on the
+    H100's tensor cores.  A producer warpgroup copies Q, K and V by TMA
+    from their native layouts into a 2-stage shared-memory ring; two
+    consumer warpgroups run Q·Kᵀ and P·V as ``wgmma`` (bf16 in, fp32
+    accumulate; P taken from registers) and the online softmax on the
+    accumulators.  Its bound on the H100 is the tensor cores' bf16 rate
+    (1,070 TFLOP/s at 1,980 MHz) for the 4·hd FLOPs and the MUFU rate
+    (4.18·10¹² /s) for the exp of each visible (q, k) pair, equal at
+    hd 64 (0.514 ms each at TinyLlama's 8 × 4,096 causal prefill) and far
+    above the bytes; so each warpgroup runs its exps under its own
+    previous P·V and the two take turns on the tensor cores.
+  - ``"ffma"`` (fp32): ``csrc/flash_fwd.cu``, fp32 FFMA on the CUDA cores.
+    Hopper's tensor cores take no fp32 operands, and TF32 would round the
+    operands to 10-bit mantissas, against the reference's fp32 contract.
+
+  ``flash_fwd.launches`` counts every launch and
+  ``flash_fwd.route_launches`` each route's.
+* :func:`flash_attention` is the wrapper: a kernel on CUDA tensors, the
   plain version on CPU tensors, never the one in place of the other.
 * :func:`flash_attention_plain` follows the reference's op sequence chunk
   by chunk (it also serves ``layers.causal_attention`` on the CPU, window
   and query offset included).
 
 k and v may carry fewer heads than q (GQA): query head h reads kv head
-``h // (H // KV)``.  The kernel indexes it; the plain version expands k
+``h // (H // KV)``.  The kernels index it; the plain version expands k
 and v as the reference's ``_expand_kv`` does (:func:`expand_kv`).
 """
 from __future__ import annotations
@@ -30,13 +49,17 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["NEG", "HEAD_DIMS", "SOURCE", "build", "expand_kv", "flash_fwd", "flash_attention",
-           "flash_attention_plain"]
+__all__ = ["NEG", "HEAD_DIMS", "ROUTES", "SOURCE", "SOURCE_SM90", "build", "expand_kv", "flash_fwd",
+           "flash_attention", "flash_attention_plain", "route"]
 
 NEG = -1e30  # large-finite: no inf − inf in the online softmax
 HEAD_DIMS = (64, 80, 128)
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
+SOURCE_SM90 = Path(__file__).resolve().parent / "csrc" / "flash_fwd_sm90.cu"
+# route -> the kernel source it launches
+ROUTES = {"wgmma": SOURCE_SM90, "ffma": SOURCE}
 _MAX_GRID_Y = 65535
+_BLOCK_Q_SM90 = 128  # query rows per CTA of the wgmma kernel
 
 _lib: ctypes.CDLL | None = None
 
@@ -45,12 +68,26 @@ def build() -> ctypes.CDLL:
     """Compile (if needed) and load the kernel library."""
     global _lib
     if _lib is None:
-        lib = _build.load_library("flash_fwd", [SOURCE])
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, p]
+        lib = _build.load_library("flash_fwd", [SOURCE, SOURCE_SM90])
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, f, i, p]
         lib.flash_fwd.restype = i
+        lib.flash_fwd_sm90.argtypes = [p, p, p, p, i, i, i, i, i, i, f, i, p]
+        lib.flash_fwd_sm90.restype = i
         _lib = lib
     return _lib
+
+
+def route(dtype: torch.dtype, hd: int) -> str:
+    """The kernel that takes (dtype, head_dim): ``"wgmma"`` for bfloat16,
+    ``"ffma"`` for float32.  Raises on any other dtype or head_dim."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not supported; the kernels have {HEAD_DIMS}")
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if dtype == torch.float32:
+        return "ffma"
+    raise ValueError(f"flash_fwd takes float32 or bfloat16, got {dtype}")
 
 
 def _check(q, k, v, out) -> None:
@@ -68,14 +105,14 @@ def _check(q, k, v, out) -> None:
     b, _, h, hd = q.shape
     if k.shape[0] != b or k.shape[3] != hd:
         raise ValueError(f"k, v {tuple(k.shape)} do not match q {tuple(q.shape)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not supported; the kernel has {HEAD_DIMS}")
     if k.shape[2] == 0 or h % k.shape[2]:
         raise ValueError(f"{h} query heads do not divide into {k.shape[2]} kv heads")
     if k.shape[1] == 0:
         raise ValueError("k and v hold no keys")
-    if b * h > _MAX_GRID_Y:
+    if route(q.dtype, hd) == "ffma" and b * h > _MAX_GRID_Y:
         raise ValueError(f"B·H = {b * h} exceeds the grid's {_MAX_GRID_Y}")
+    if -(-q.shape[1] // _BLOCK_Q_SM90) > _MAX_GRID_Y:
+        raise ValueError(f"Sq = {q.shape[1]} exceeds the grid's {_MAX_GRID_Y} query blocks")
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
@@ -85,23 +122,28 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tens
               causal: bool = True) -> None:
     """One launch: attention of q (B, Sq, H, hd) over k, v (B, Sk, KV, hd)
     into ``out`` (B, Sq, H, hd).  All contiguous, 16-byte aligned, one
-    dtype (float32 or bfloat16) on one CUDA device; hd ∈ ``HEAD_DIMS``."""
+    dtype (float32 or bfloat16) on one CUDA device; hd ∈ ``HEAD_DIMS``.
+    The kernel is :func:`route`'s; a failed launch raises."""
     _check(q, k, v, out)
     b, sq, h, hd = q.shape
     if b == 0 or sq == 0:
         return
-    fn = build().flash_fwd
+    which = route(q.dtype, hd)
+    lib = build()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    shape = (b, sq, k.shape[1], h, k.shape[2], hd, 1.0 / (hd ** 0.5), int(causal))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 int(q.dtype == torch.bfloat16), b, sq, k.shape[1], h, k.shape[2], hd,
-                 1.0 / (hd ** 0.5), int(causal), stream)
+        fn = lib.flash_fwd_sm90 if which == "wgmma" else lib.flash_fwd
+        err = fn(*args, *shape, stream)
     if err != 0:
-        raise RuntimeError(f"flash_fwd launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_fwd ({which}) launch failed: CUDA error {err}")
     flash_fwd.launches += 1
+    flash_fwd.route_launches[which] += 1
 
 
 flash_fwd.launches = 0
+flash_fwd.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

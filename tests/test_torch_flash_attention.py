@@ -15,8 +15,10 @@ Tolerances: fp32 ``atol 2e-5, rtol 1e-4`` (the reference's own,
 (``tests/test_kernels.py:124``) and ``2^-7·max|v|`` against float64 — one
 rounding of p to bf16 (≤ 2^-8 relative, so ≤ 2^-8·max|v| on the weighted
 average) plus the output's rounding to bf16 (≤ 2^-8·max|v|).  The last
-two tests hold ``chip_smoke.py``'s tighter per-entry bound for the card
-against other kv chunks and against emulated kernel faults.
+tests hold ``chip_smoke.py``'s tighter per-entry bound for the card
+against other kv chunks, against an emulation of the tensor-core kernel's
+arithmetic and against emulated kernel faults.  The routing tests pin
+which kernel each dtype takes (``flash.route``).
 """
 import numpy as np
 import pytest
@@ -155,12 +157,50 @@ def test_launcher_rejects_cpu_tensors():
         F.flash_fwd(q, k, v, torch.empty_like(q))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_launcher_rejects_cpu_tensors_of_either_route_and_counts_nothing(dtype):
+    q, k, v = (x.to(dtype) for x in _t(*_qkv(0, 1, 8, 8, 2, 2, 64)))
+    before = (F.flash_fwd.launches, dict(F.flash_fwd.route_launches))
+    with pytest.raises(ValueError, match="CUDA"):
+        F.flash_fwd(q, k, v, torch.empty_like(q))
+    assert (F.flash_fwd.launches, F.flash_fwd.route_launches) == before
+
+
 def test_wrapper_on_cpu_runs_the_plain_version_and_never_launches():
     q, k, v = _t(*_qkv(1, 1, 64, 64, 4, 2, 64))
     before = F.flash_fwd.launches
     got = F.flash_attention(q, k, v)
     assert F.flash_fwd.launches == before
     torch.testing.assert_close(got, F.flash_attention_plain(q, k, v), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("hd", F.HEAD_DIMS)
+def test_route_sends_bf16_to_the_tensor_cores_and_fp32_to_the_cuda_cores(hd):
+    assert F.route(torch.bfloat16, hd) == "wgmma"
+    assert F.route(torch.float32, hd) == "ffma"
+    assert F.ROUTES["wgmma"] == F.SOURCE_SM90 and F.ROUTES["ffma"] == F.SOURCE
+    assert F.SOURCE_SM90.is_file() and F.SOURCE.is_file()
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.float16, 64), (torch.float64, 64), (torch.bfloat16, 32),
+                                      (torch.float32, 96), (torch.bfloat16, 256)], ids=str)
+def test_route_raises_on_other_dtypes_and_head_dims(dtype, hd):
+    with pytest.raises(ValueError, match="head_dim|float32 or bfloat16"):
+        F.route(dtype, hd)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_wrapper_on_cpu_leaves_every_route_counter_at_zero(dtype):
+    q, k, v = (x.to(dtype) for x in _t(*_qkv(2, 1, 64, 64, 4, 2, 64)))
+    saved = dict(F.flash_fwd.route_launches)
+    try:
+        for r in F.flash_fwd.route_launches:
+            F.flash_fwd.route_launches[r] = 0
+        F.flash_attention(q, k, v)
+        L.causal_attention(q, k, v, L.AttnSpec(4, 2, 64, 16, None))
+        assert F.flash_fwd.route_launches == dict.fromkeys(F.ROUTES, 0)
+    finally:
+        F.flash_fwd.route_launches.update(saved)
 
 
 def test_causal_attention_off_the_kernel_path_raises_off_cpu():
@@ -186,10 +226,59 @@ def _load_script(name: str, rel: str):
 
 def test_planted_faults_each_hit_the_kernel_source_once():
     faults = _load_script("flash_planted_faults", "scripts/flash_planted_faults.py")
-    text = F.SOURCE.read_text()
-    assert len(faults.FAULTS) == 6
+    text = F.SOURCE_SM90.read_text()
+    assert len(faults.FAULTS) == 7
+    assert faults.CAUSAL_ONLY <= set(faults.FAULTS)
     for name, (old, new) in faults.FAULTS.items():
         assert text.count(old) == 1 and new != old, name
+
+
+def _tensor_core_arithmetic(q, k, v, causal, tile):
+    """The wgmma kernel's arithmetic, emulated: scores as fp32 sums of the
+    exact bf16 products in another order (float64, rounded once), key tiles
+    of ``tile`` (128; 64 at hd 128), the running max in log2 units with the scale and log2(e) folded
+    into one multiply-add ahead of exp2, masked keys at −inf, l over the
+    fp32 p, p rounded to bf16 against the tile's own running max."""
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    kx, vx = F.expand_kv(k, h // k.shape[2]), F.expand_kv(v, h // k.shape[2])
+    raw = torch.einsum("bqhd,bkhd->bhqk", q.double(), kx.double()).float()
+    c = torch.tensor(1.0 / hd ** 0.5, dtype=torch.float32) * torch.tensor(1.4426950408889634,
+                                                                         dtype=torch.float32)
+    m = torch.full((b, h, sq), F.NEG)
+    l = torch.zeros((b, h, sq))
+    acc = torch.zeros((b, h, sq, hd))
+    rows = torch.arange(sq)[:, None]
+    for k0 in range(0, sk, tile):
+        s = raw[..., k0:k0 + tile]
+        if causal:
+            s = torch.where(k0 + torch.arange(s.shape[-1])[None, :] > rows, -torch.inf, s)
+        m_new = torch.maximum(m, s.amax(-1) * c)
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2((s.double() * c.double() - m_new.double()[..., None]).float())
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p.to(torch.bfloat16).float(),
+                                                   vx[:, k0:k0 + tile].float())
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).transpose(1, 2).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("hd,tile", [(64, 128), (128, 64)], ids=["hd64", "hd128"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_smoke_tolerance_takes_the_tensor_core_arithmetic(causal, hd, tile):
+    """chip_smoke's per-entry bf16 bound holds the wgmma kernel's arithmetic
+    (other summation order, its key tiles, exp2 with the folded scale, −inf
+    masks) against the plain version at chunks 64 and 512 and against
+    float64 — the derivation's premises, checked on the CPU."""
+    smoke = _load_script("chip_smoke", "chip_smoke.py")
+    q, k, v = (x.to(torch.bfloat16) for x in _t(*_qkv(5, 1, 1024, 1024, 4, 2, hd)))
+    got = _tensor_core_arithmetic(q, k, v, causal, tile)
+    abs_v = smoke.weighted_abs_v(q, k, v, causal=causal)
+    for c in (64, 512):
+        e = smoke.flash_error(got, F.flash_attention_plain(q, k, v, causal=causal, chunk=c), abs_v)
+        assert e["max_ratio"] <= 1, (c, e)
+    want = attention_ref(q.double(), k.double(), v.double(), causal=causal)
+    assert smoke.flash_error(got, want, abs_v, exact=True)["max_ratio"] <= 1
 
 
 def test_smoke_tolerance_takes_other_chunks_and_rejects_wrong_kv_heads_and_dropped_tiles():
