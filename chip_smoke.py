@@ -10,25 +10,32 @@ Phases (each asserts; any failure exits non-zero):
      and multi-query bucket scans, flash attention with its two routes:
      bf16 on the tensor cores, fp32 on the CUDA cores) from the csrc/
      folders under src/repro_torch/kernels/ into build/kernels/, one nvcc
-     per source, started together;
+     per source, started together; ptxas's registers and spills per
+     kernel, and no spill in any of kernel 1's four instances;
   3. kernel vs plain version on the same CUDA tensors (fp32 and bf16, masks,
-     empty sides, pruning, a grid whose CTAs walk several b-tiles), per
+     empty sides, pruning, a grid whose CTAs walk several tile pairs), per
      min-d² entry within 2·(D+2)·eps32·scale², HD within fp_value_margin
-     of a float64 oracle;
+     of a float64 oracle; the directed instance's row mins bitwise the
+     bidirectional one's; pruned bitwise unpruned in both instances; and
+     both instances bitwise equal under four launch plans (planned, 7
+     CTAs, forced streamed and forced resident a-tile) at D 1, 3, 17 and
+     256, fp32 and bf16;
   4. exact path: set_distance on the paper's Random Clouds at
-     262,144 × 262,144, D = 256, against backend="tiled", and the kernel's
-     min-d² vectors at that shape entry by entry against the plain version;
+     262,144 × 262,144, D = 256, against backend="tiled" (its time the
+     median of 3 calls after a warm-up), and the kernel's min-d² vectors
+     at that shape entry by entry against the plain version;
   5. ProHD at 1,048,576 × 1,048,576, D = 256 (Random Clouds and the
-     Gaussian-mixture proxy) against ProHD on backend="tiled", and its
-     certificate against phase 4's exact value at 262,144 per side (exact
-     ground truth at 1M per side is cut for time);
+     Gaussian-mixture proxy; times the median of 3 calls after a warm-up)
+     against ProHD on backend="tiled", and its certificate against phase
+     4's exact value at 262,144 per side (exact ground truth at 1M per
+     side is cut for time);
   6. directed, partial and chamfer at 65,536 × 65,536, D = 256;
   7. CUDA-event times (median of 5 after warm-up) of the kernel, its bound,
-     its plain version and torch.cdist + amin over rows and columns as a
-     yardstick (at the sweep shape over 65,536-column chunks of b), with
-     the kernel's outputs held entry by entry against the plain version's
-     at both timed shapes (and the masked, directed wrapper call at ProHD's
-     sweep shape).
+     its plain version and torch.cdist + amin as a yardstick, at 65,536²
+     (bidirectional) and at ProHD's sweep shape (over 65,536-column
+     chunks of b) in both instances, with the kernel's outputs held entry
+     by entry against the plain version's at every timed shape and
+     instance (and the masked, directed wrapper call at the sweep shape).
 Kernel 2 and the corpus search:
   3b. the batched bucket scan against its plain version on CUDA tensors
      (shared and per-set queries, a shared slab, ragged caps, an
@@ -366,7 +373,8 @@ def phase_env():
 
 
 def phase_build():
-    """Build the four kernels from the checkout, one nvcc each, started together."""
+    """Build the four kernels from the checkout, one nvcc each, started
+    together; every instance of kernel 1 must build without spills."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import _build
@@ -380,11 +388,18 @@ def phase_build():
                   pool.submit(F.build)]:
             f.result()
     ptxas = {}
+    kernel1 = {}
     for name in launchers():
-        logs = sorted(_build.BUILD_DIR.glob(f"{name}-*.log"))
-        ptxas[name] = [ln.strip() for ln in logs[-1].read_text().splitlines()
-                       if "registers" in ln or "spill" in ln] if logs else []
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
+        logs = sorted(_build.BUILD_DIR.glob(f"{name}-*.log"), key=lambda f: f.stat().st_mtime)
+        text = logs[-1].read_text() if logs else ""
+        ptxas[name] = [ln.strip() for ln in text.splitlines() if "registers" in ln or "spill" in ln]
+        if name == "fused_minscan":
+            kernel1 = {k: v for k, v in _build.ptxas_report(text).items() if "fused_minscan_kernel" in k}
+    # four instances: {resident, streamed} × {directed, bidirectional}
+    assert len(kernel1) == 4 and all("registers" in v for v in kernel1.values()), kernel1
+    assert all(v.get("spill_bytes") == 0 for v in kernel1.values()), kernel1
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas,
+          "fused_minscan_instances": kernel1})
 
 
 def phase_kernel_vs_plain(seed: int) -> float:
@@ -401,7 +416,10 @@ def phase_kernel_vs_plain(seed: int) -> float:
     shapes = [(8, 8, 2), (513, 129, 100), (1000, 333, 28), (64, 2000, 256), (4096, 4096, 256),
               (4096, 65_536, 256)]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    walks = {f"{n_a}x{n_b}": K.grid(n_a, n_b, sms)[2] for n_a, n_b, _ in shapes}
+    walks = {}
+    for n_a, n_b, d in shapes:
+        plan = K.launch_plan(n_a, n_b, d, sms)
+        walks[f"{n_a}x{n_b}"] = -(-plan.n_pairs // plan.grid)
     assert max(walks.values()) > 1, walks
     gen = make_generator(seed, DEVICE)
     max_err = 0.0
@@ -419,6 +437,9 @@ def phase_kernel_vs_plain(seed: int) -> float:
                 ma, mb = (va, vb) if masked else (None, None)
                 ka, kb = ops.fused_min_sqdists(a, b, valid_a=ma, valid_b=mb)
                 pa, pb = exact.fused_min_sqdists_tiled(a, b, valid_a=ma, valid_b=mb)
+                # the directed instance's row mins are the bidirectional one's, bit for bit
+                da = ops.fused_min_sqdists(a, b, valid_a=ma, valid_b=mb, directed=True)[0]
+                assert torch.equal(da, ka), (n_a, n_b, d, dtype, masked, "directed vs bidirectional")
                 for k, p, v in ((ka, pa, ma), (kb, pb, mb)):
                     err = entry_err(k, p, v)
                     assert err <= tol, (n_a, n_b, d, dtype, masked, err, tol)
@@ -451,6 +472,8 @@ def phase_kernel_vs_plain(seed: int) -> float:
                 assert torch.equal(pr[0], base[0]) and torch.equal(pr[1], base[1]), (n_a, n_b, d, blk)
                 dr = ops.min_sqdists(sa, sb, prune_projs=(pja, pjb), block_a=blk, block_b=blk)
                 assert torch.equal(dr, base[0]), (n_a, n_b, d, blk, "directed")
+                du = ops.min_sqdists(sa, sb, block_a=blk, block_b=blk)
+                assert torch.equal(du, base[0]), (n_a, n_b, d, blk, "directed unpruned")
                 tables = tile_bounds.prune_tables(
                     sa, pja, None, sb, pjb, None, ops.fit_block(blk, n_a), ops.fit_block(blk, n_b)
                 )
@@ -470,9 +493,52 @@ def phase_kernel_vs_plain(seed: int) -> float:
     tables = tile_bounds.prune_tables(sa, pja, None, sb, pjb, None, 128, 128)
     bite = float(tile_bounds.skip_fraction(tables))
     assert bite > 0.25, bite
+    dr = ops.min_sqdists(sa, sb, prune_projs=(pja, pjb), block_a=128, block_b=128)
+    assert torch.equal(dr, base[0]), "directed pruned vs unpruned, low D"
+    plans = plan_independence(gen, sms)
     emit({"phase": "kernel_vs_plain", "cases": rows, "max_abs_err": max_err,
-          "b_tiles_per_cta": walks, "low_d_skip_fraction": bite})
+          "pairs_per_cta": walks, "low_d_skip_fraction": bite, "launch_plans": plans})
     return max_err
+
+
+def plan_independence(gen, sms: int) -> list[dict]:
+    """Kernel 1's outputs bit for bit under different launch plans (the
+    planned grid, 7 CTAs, a forced streamed and a forced resident a-tile),
+    both instances, at D 1, 3, 17 and 256, fp32 and bf16, ragged sides."""
+    import torch
+
+    from repro_torch.data.pointclouds import random_clouds
+    from repro_torch.kernels.hausdorff import hausdorff as K
+
+    n_a, n_b = 1000, 3000
+    rows = []
+    for d in (1, 3, 17, 256):
+        a32, b32 = random_clouds(gen, n_a, n_b, d)
+        for dtype in (torch.float32, torch.bfloat16):
+            a, b = a32.to(dtype).contiguous(), b32.to(dtype).contiguous()
+            a2 = (a.float() ** 2).sum(1)
+            b2 = (b.float() ** 2).sum(1)
+            base = K.launch_plan(n_a, n_b, d, sms)
+            plans = {"planned": None, "7 CTAs": base._replace(grid=7),
+                     "streamed": K.launch_plan(n_a, n_b, d, sms, resident=False),
+                     "resident": K.launch_plan(n_a, n_b, d, sms, resident=True)}
+            for directed in (False, True):
+                outs = {}
+                for label, plan in plans.items():
+                    ma = torch.full((n_a,), torch.inf, device=DEVICE)
+                    mb = torch.full((n_b,), torch.inf, device=DEVICE)
+                    K.fused_minscan(a, b, a2, b2, ma, mb, directed=directed, plan=plan)
+                    outs[label] = (ma, mb)
+                ref_a, ref_b = outs["planned"]
+                for label, (ma, mb) in outs.items():
+                    assert torch.equal(ma, ref_a), (d, dtype, directed, label)
+                    if directed:
+                        assert torch.isinf(mb).all(), (d, dtype, label, "directed wrote min_b")
+                    else:
+                        assert torch.equal(mb, ref_b), (d, dtype, label)
+            rows.append({"d": d, "dtype": str(dtype).split(".")[-1], "planned": base._asdict(),
+                         "plans": list(plans)})
+    return rows
 
 
 def batched_case(gen, n_sets, n_q, cap, d, *, per_set_q=False, shared_slab=False):
@@ -1303,6 +1369,21 @@ def phase_times_multiquery(corpus: dict, batch: dict, env: dict) -> list[dict]:
     return rows
 
 
+def timed_calls(call, reps: int = 3):
+    """One warm-up call of a set_distance front door (measure=True), then
+    ``reps`` timed ones: (the warm-up's result, the median of the timed
+    calls' device-synchronised wall times, their spread and values)."""
+    res = call()
+    runs, values = [], []
+    for _ in range(reps):
+        r = call()
+        runs.append(r.meta.elapsed_s)
+        values.append(float(r.value))
+    return res, {"elapsed_s": statistics.median(runs), "elapsed_runs_s": runs,
+                 "spread_s": max(runs) - min(runs), "warmup_s": res.meta.elapsed_s,
+                 "repeat_values": values}
+
+
 def phase_exact(seed: int):
     from repro_torch.core import exact
     from repro_torch.core.fp_margin import fp_value_margin, sqdist_tolerance
@@ -1314,10 +1395,11 @@ def phase_exact(seed: int):
     a, b = random_clouds(make_generator(seed + 1, DEVICE), N_EXACT, N_EXACT, D)
     scale = scale_of(a, b)
     before = K.fused_minscan.launches
-    res = set_distance(a, b, measure=True)
+    res, times = timed_calls(lambda: set_distance(a, b, measure=True))
     launches = K.fused_minscan.launches - before
     assert res.meta.backend == "fused_cuda", res.meta
     assert launches > 0
+    assert all(v == float(res.value) for v in times["repeat_values"]), times  # the kernel is deterministic
     tiled = set_distance(a, b, backend="tiled", measure=True)
     h, ht = float(res.value), float(tiled.value)
     margin = float(fp_value_margin(D, scale, h))
@@ -1332,7 +1414,7 @@ def phase_exact(seed: int):
     del ka, kb, pa, pb
     emit({"phase": "exact", "n": N_EXACT, "d": D, "value": h, "tiled_value": ht,
           "margin": margin, "max_abs_err": err, "tol": tol, "launches": launches,
-          "elapsed_s": res.meta.elapsed_s, "tiled_elapsed_s": tiled.meta.elapsed_s})
+          **times, "tiled_elapsed_s": tiled.meta.elapsed_s})
     return a, b, h, scale, err
 
 
@@ -1354,7 +1436,7 @@ def phase_prohd(seed: int, a_exact, b_exact, h_exact: float, scale_exact: float)
         a, b = make(make_generator(seed + 2, DEVICE), N_PROHD, N_PROHD, D)
         scale = scale_of(a, b)
         before = K.fused_minscan.launches
-        res = set_distance(a, b, method="prohd", config=cfg, measure=True)
+        res, times = timed_calls(lambda: set_distance(a, b, method="prohd", config=cfg, measure=True))
         launches = K.fused_minscan.launches - before
         assert res.meta.backend == "fused_cuda", res.meta
         assert launches > 0
@@ -1370,7 +1452,7 @@ def phase_prohd(seed: int, a_exact, b_exact, h_exact: float, scale_exact: float)
         out["runs"].append({"data": name, "value": v, "tiled_value": vt, "margin": margin,
                             "lower": float(res.lower), "upper": up,
                             "n_sel_a": int(res.stats["n_sel_a"]), "n_sel_b": int(res.stats["n_sel_b"]),
-                            "launches": launches, "elapsed_s": res.meta.elapsed_s,
+                            "launches": launches, **times,
                             "tiled_elapsed_s": tiled.meta.elapsed_s})
         del a, b
         torch.cuda.empty_cache()
@@ -1411,7 +1493,21 @@ def phase_variants(seed: int):
     emit({"phase": "variants", "n": N_VARIANT, "d": D, "runs": rows})
 
 
+def scan_bound(peak: float, n_a: int, n_b: int, directed: bool) -> tuple[float, str]:
+    """Kernel 1's least time (ms) on these shapes: 2·n_a·n_b·D FLOPs at the
+    FFMA peak, against a, b, a2, b2 read once and min_a (and min_b) written
+    once at the HBM rate."""
+    flops = 2.0 * n_a * n_b * D
+    nbytes = 4.0 * ((n_a + n_b) * D + 2 * n_a + (1 if directed else 2) * n_b)
+    op_ms = flops / peak * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else "bytes"
+
+
 def phase_times(seed: int, env: dict) -> list[dict]:
+    """Kernel 1 timed at 65,536² (bidirectional: exact and the variants) and
+    at ProHD's sweep shape, 41,930 × 1,048,576, in both instances (the
+    sweeps run the directed one), beside its plain version and cdist + amin."""
     import torch
 
     from repro_torch.core import exact
@@ -1430,11 +1526,12 @@ def phase_times(seed: int, env: dict) -> list[dict]:
         b2 = (b * b).sum(1)
         min_a = torch.empty(n_a, device=DEVICE)
         min_b = torch.empty(n_b, device=DEVICE)
+        plan = K.launch_plan(n_a, n_b, D, env["sms"])
 
-        def kernel():
+        def kernel(directed=False):
             min_a.fill_(torch.inf)
             min_b.fill_(torch.inf)
-            K.fused_minscan(a, b, a2, b2, min_a, min_b)
+            K.fused_minscan(a, b, a2, b2, min_a, min_b, directed=directed)
 
         ms = cuda_ms(kernel)
         plain = {}
@@ -1447,48 +1544,58 @@ def phase_times(seed: int, env: dict) -> list[dict]:
         tol = sqdist_tolerance(D, scale_of(a, b))
         err = max(entry_err(min_a, plain["mins"][0]), entry_err(min_b, plain["mins"][1]))
         assert err <= tol, (label, err, tol)
-        del plain["mins"]
+        instances = [(label, False, ms, err)]
         if label == "prohd_sweep":
+            # The directed instance, as ProHD's sweeps launch it, held to the
+            # same plain version's row mins.
+            directed_ms = cuda_ms(lambda: kernel(directed=True))
+            assert torch.isinf(min_b).all(), "the directed instance wrote min_b"
+            derr = entry_err(min_a, plain["mins"][0])
+            assert derr <= tol, (label, "directed", derr, tol)
+            instances.append(("prohd_sweep_directed", True, directed_ms, derr))
             # ProHD's sweep as the main path makes it: the selected rows
             # padded to a static capacity (masked), directed, through ops.
             va = torch.rand(n_a, generator=gen, device=DEVICE) < 0.95
             km = ops.min_sqdists(a, b, valid_a=va)
             pm, _ = exact.fused_min_sqdists_tiled(a, b, valid_a=va)
-            err = max(err, entry_err(km, pm, va))
-            assert err <= tol, (label, "masked directed", err, tol)
+            merr = entry_err(km, pm, va)
+            assert merr <= tol, (label, "masked directed", merr, tol)
             del km, pm
+        del plain["mins"]
+        library = {}
         if label == "exact/variants":
             # The kernel's function: the distance matrix (17.2 GB fp32) and
             # its row and column mins.
-            def library():
+            def lib_both():
                 dist = torch.cdist(a, b)
                 return dist.amin(1), dist.amin(0)
 
-            library_ms = cuda_ms(library)
+            library[False] = cuda_ms(lib_both)
         else:
             # One cdist over all of b would write 176 GB: columns in chunks,
-            # each folded into the row mins and its own column mins by amin.
-            def library():
+            # each folded into the row mins (and its own column mins by amin).
+            def lib_chunks(directed):
                 row = torch.full((n_a,), torch.inf, device=DEVICE)
                 cols = []
                 for j in range(0, n_b, CDIST_CHUNK):
                     dist = torch.cdist(a, b[j:j + CDIST_CHUNK])
                     row = torch.minimum(row, dist.amin(1))
-                    cols.append(dist.amin(0))
+                    if not directed:
+                        cols.append(dist.amin(0))
                     del dist
-                return row, torch.cat(cols)
+                return row, cols
 
-            library_ms = cuda_ms(library, reps=3)
+            library[False] = cuda_ms(lambda: lib_chunks(False), reps=3)
+            library[True] = cuda_ms(lambda: lib_chunks(True), reps=3)
         torch.cuda.empty_cache()
-        flops = 2.0 * n_a * n_b * D
-        nbytes = 4.0 * ((n_a + n_b) * D + 2 * (n_a + n_b))
-        op_ms = flops / peak * 1e3
-        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        rows.append({"shape": [n_a, n_b, D], "label": label, "ms": ms, "plain_ms": plain_ms,
-                     "max_abs_err": err, "tol": tol,
-                     "library_ms": library_ms, "bound_ms": max(op_ms, byte_ms),
-                     "bound_by": "operations" if op_ms >= byte_ms else "bytes",
-                     "achieved_tflops": flops / (ms * 1e-3) / 1e12})
+        for name, directed, t, e in instances:
+            bound_ms, bound_by = scan_bound(peak, n_a, n_b, directed)
+            rows.append({"shape": [n_a, n_b, D], "label": name, "directed": directed,
+                         "plan": plan._asdict(), "ms": t, "plain_ms": plain_ms,
+                         "max_abs_err": e, "tol": tol, "library_ms": library[directed],
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "share_of_bound": bound_ms / t,
+                         "achieved_tflops": 2.0 * n_a * n_b * D / (t * 1e-3) / 1e12})
         del a, b, a2, b2, min_a, min_b
         torch.cuda.empty_cache()
     emit({"phase": "times", "rows": rows})

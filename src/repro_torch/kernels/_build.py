@@ -17,11 +17,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "compile_library", "find_nvcc", "load_library"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "compile_library", "find_nvcc", "load_library", "ptxas_report"]
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -89,3 +90,23 @@ def load_library(name: str, sources: list[Path]) -> ctypes.CDLL:
         out.with_suffix(".log").write_text(compile_library(list(sources), tmp))
         os.replace(tmp, out)
     return ctypes.CDLL(str(out))
+
+
+def ptxas_report(log: str) -> dict[str, dict[str, int]]:
+    """Registers and spill bytes per kernel, by mangled name, from a build
+    log (ptxas's ``-v`` lines)."""
+    out: dict[str, dict[str, int]] = {}
+    name = None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", ln)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+        elif name is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if m:
+                out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                out[name]["registers"] = int(m.group(1))
+    return out

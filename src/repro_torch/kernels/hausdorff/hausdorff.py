@@ -2,11 +2,16 @@
 
 Counterpart of ``repro/kernels/hausdorff/hausdorff.py`` (the Pallas
 ``_fused_kernel``).  :func:`fused_minscan` folds every entry of
-``d² = max((a2 − 2ab) + b2, 0)`` into the row mins and column mins of
-outputs that hold +inf (or earlier partial mins) — one launch, both
-directions.  Tiles of ``TILE`` rows are gated by the prune tables, read at
-the table block they lie in.  The ``kernels.hausdorff.ops`` wrapper does
-the validity, norm and prune-table work around it.
+``d² = max((a2 − 2ab) + b2, 0)`` into the row mins and, unless
+``directed``, the column mins of outputs that hold +inf (or earlier
+partial mins): one launch.  Tile pairs of ``TILE`` rows are gated by the
+prune tables, read at the table block they lie in.  The
+``kernels.hausdorff.ops`` wrapper does the validity, norm and prune-table
+work around it.
+
+:func:`launch_plan` decides how a scan is launched: the persistent grid
+(the tile pairs cut into one equal range per CTA), and whether a CTA keeps
+its a-tile resident in shared memory (only b streams) or streams both.
 
 Only CUDA tensors are accepted: the plain version for the CPU is
 ``repro_torch.core.exact.fused_min_sqdists_tiled``, chosen by the ops
@@ -18,14 +23,17 @@ launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["TILE", "TABLE_BLOCK", "SOURCE", "build", "grid", "fused_minscan"]
+__all__ = ["TILE", "TABLE_BLOCK", "SOURCE", "MAX_SMEM", "LaunchPlan", "build", "smem_bytes",
+           "launch_plan", "pair_range", "fused_minscan"]
 
 # Rows of a and of b per CTA tile; prune-table blocks are multiples of it.
 TILE = 128
@@ -35,8 +43,17 @@ TILE = 128
 TABLE_BLOCK = 512
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_minscan.cu"
 
-# CTAs to aim for per launch, per SM: several waves of 2 resident CTAs.
-_CTAS_PER_SM = 8
+# The kernel's constants (csrc/fused_minscan.cu), mirrored for the plan;
+# the kernel refuses a launch whose shared-memory size disagrees.
+_BK = 32            # k-slice per ring slot
+_STAGES = 3         # ring slots
+_PITCH = _BK + 4    # stage row pitch, floats
+_SLICE_BYTES = TILE * _PITCH * 4
+# Shared memory one block can use on sm_90 (227 KB).
+MAX_SMEM = 232_448
+# A CTA keeps its a-tile resident only if it walks at least this many
+# b-tiles per a-tile: the load of a resident tile is not overlapped.
+_RESIDENT_MIN_WALK = 4
 
 _lib: ctypes.CDLL | None = None
 
@@ -49,22 +66,91 @@ def build() -> ctypes.CDLL:
         fn = lib.fused_minscan
         p = ctypes.c_void_p
         i = ctypes.c_int
-        fn.argtypes = [p, p, i, p, p, p, ctypes.c_longlong, p, p, p, p,
-                       i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, ctypes.c_longlong, p, p, p, p,
+                       i, i, i, i, i, i, i, i, i, p]
         fn.restype = i
+        lib.fused_minscan_occupancy.argtypes = [i, i, i]
+        lib.fused_minscan_occupancy.restype = i
         _lib = lib
     return _lib
 
 
-def grid(n_a: int, n_b: int, sms: int) -> tuple[int, int, int]:
-    """The launch grid for an (n_a, n_b) scan on a card with ``sms`` SMs:
-    ``(a-tiles, b-chunks, b-tiles per chunk)``.  Each CTA walks its chunk's
-    b-tiles in turn, so a small query side still fills the card."""
-    tiles_a = math.ceil(n_a / TILE)
+def _row_stride(d: int) -> int:
+    """Floats per staged row: D rounded up to 4 (16-byte rows), at least 4."""
+    return max(4, -(-d // 4) * 4)
+
+
+def smem_bytes(d: int, resident: bool) -> int:
+    """Dynamic shared memory of one CTA: the resident a-tile's k-slices (if
+    any), the ring, and the two column-min rows."""
+    n_k = -(-_row_stride(d) // _BK)
+    slices = n_k + _STAGES if resident else 2 * _STAGES
+    return slices * _SLICE_BYTES + 2 * TILE * 4
+
+
+class LaunchPlan(NamedTuple):
+    """How one scan is launched (see :func:`launch_plan`)."""
+
+    resident: bool   # a-tile resident in shared memory, only b streams
+    smem: int        # dynamic shared memory per CTA, bytes
+    grid: int        # persistent CTAs
+    n_pairs: int     # tile pairs, a-tile-major: pair p = (p // tiles_b, p % tiles_b)
+    ld: int          # staged row stride, floats
+
+
+def pair_range(plan: LaunchPlan, cta: int) -> tuple[int, int]:
+    """The tile pairs ``[begin, end)`` that CTA ``cta`` walks, as the kernel
+    computes them."""
+    return plan.n_pairs * cta // plan.grid, plan.n_pairs * (cta + 1) // plan.grid
+
+
+def launch_plan(n_a: int, n_b: int, d: int, sms: int, *, ctas_per_sm: int = 1,
+                resident: bool | None = None) -> LaunchPlan:
+    """The plan for an (n_a, n_b, D) scan on a card with ``sms`` SMs, of which
+    each holds ``ctas_per_sm`` CTAs of the chosen instance.
+
+    The grid is persistent: ``min(pairs, sms · ctas_per_sm)`` CTAs, each
+    walking one of equal ranges of the a-tile-major pairs, so every pair is
+    covered once and a small query side still fills the card.  The a-tile
+    is resident when it fits in shared memory beside the ring and a CTA
+    walks at least ``_RESIDENT_MIN_WALK`` b-tiles per a-tile; ``resident``
+    forces the choice (a resident tile that does not fit raises).
+    """
+    if min(n_a, n_b, sms, ctas_per_sm) < 1 or d < 0:
+        raise ValueError(f"launch_plan needs positive sizes, got {(n_a, n_b, d, sms, ctas_per_sm)}")
     tiles_b = math.ceil(n_b / TILE)
-    n_chunks = min(tiles_b, 65535, max(1, math.ceil(_CTAS_PER_SM * sms / tiles_a)))
-    per_chunk = math.ceil(tiles_b / n_chunks)
-    return tiles_a, math.ceil(tiles_b / per_chunk), per_chunk
+    n_pairs = math.ceil(n_a / TILE) * tiles_b
+    grid = min(n_pairs, sms * ctas_per_sm)
+    fits = smem_bytes(d, True) <= MAX_SMEM
+    if resident is None:
+        resident = fits and min(tiles_b, n_pairs // grid) >= _RESIDENT_MIN_WALK
+    elif resident and not fits:
+        raise ValueError(f"a resident a-tile at D {d} needs {smem_bytes(d, True)} B of shared memory")
+    return LaunchPlan(resident, smem_bytes(d, resident), grid, n_pairs, _row_stride(d))
+
+
+@functools.lru_cache(maxsize=4096)
+def _planned(n_a: int, n_b: int, d: int, directed: bool, device: int) -> LaunchPlan:
+    """:func:`launch_plan` on a card, with as many CTAs per SM as the CUDA
+    occupancy API fits of the chosen instance (cached: the search path
+    repeats a few shapes thousands of times)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    plan = launch_plan(n_a, n_b, d, sms)
+    with torch.cuda.device(device):
+        occ = build().fused_minscan_occupancy(int(plan.resident), int(directed), plan.smem)
+    if occ < 1:
+        raise RuntimeError(f"fused_minscan: no CTA of {plan.smem} B fits on an SM")
+    return launch_plan(n_a, n_b, d, sms, ctas_per_sm=occ, resident=plan.resident)
+
+
+def _staged(x: torch.Tensor, ld: int) -> torch.Tensor:
+    """x as the kernel reads it: fp32 rows of ``ld`` floats, 16-byte aligned,
+    zero past D.  Widening bf16 and zero-padding D are exact."""
+    if x.dtype == torch.float32 and x.shape[1] == ld and x.data_ptr() % 16 == 0:
+        return x
+    out = torch.zeros((x.shape[0], ld), dtype=torch.float32, device=x.device)
+    out[:, : x.shape[1]] = x
+    return out
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -94,6 +180,8 @@ def fused_minscan(
     cut_b: torch.Tensor | None = None,
     block_a: int = TABLE_BLOCK,
     block_b: int = TABLE_BLOCK,
+    directed: bool = False,
+    plan: LaunchPlan | None = None,
 ) -> None:
     """One launch: fold the d² entries of (a, b) into ``min_a`` / ``min_b``.
 
@@ -102,8 +190,13 @@ def fused_minscan(
     invalid rows.  min_a (n_a,), min_b (n_b,): fp32 outputs, updated in
     place.  lb (gi, gj) with unit column stride, cut_a (gi,), cut_b (gj,):
     the prune tables at ``block_a`` × ``block_b`` rows (multiples of
-    ``TILE``), or all None for an ungated scan.
+    ``TILE``), or all None for an ungated scan.  ``directed=True`` launches
+    the row-min-only instance and leaves ``min_b`` as given.  ``plan``
+    overrides :func:`launch_plan` (for checks that results do not depend on
+    it).
     """
+    if not isinstance(directed, bool):
+        raise TypeError(f"directed must be a bool, got {type(directed).__name__}")
     dev = a.device
     if dev.type != "cuda":
         raise ValueError(f"fused_minscan takes CUDA tensors, got {dev}")
@@ -132,17 +225,23 @@ def fused_minscan(
     if n_a == 0 or n_b == 0:
         return
 
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    _, _, tiles_per_chunk = grid(n_a, n_b, sms)
+    if plan is None:
+        plan = _planned(n_a, n_b, d, directed, dev.index if dev.index is not None else torch.cuda.current_device())
+    elif (plan.n_pairs, plan.ld, plan.smem) != (math.ceil(n_a / TILE) * math.ceil(n_b / TILE),
+                                              _row_stride(d), smem_bytes(d, plan.resident)):
+        raise ValueError(f"plan {plan} does not fit an ({n_a}, {n_b}, {d}) scan")
+    a = _staged(a, plan.ld)
+    b = _staged(b, plan.ld)
 
     fn = build().fused_minscan
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
-            a.data_ptr(), b.data_ptr(), int(a.dtype == torch.bfloat16),
-            a2.data_ptr(), b2.data_ptr(), _ptr(lb), ld_lb, _ptr(cut_a), _ptr(cut_b),
-            min_a.data_ptr(), min_b.data_ptr(), n_a, n_b, d,
-            block_a // TILE, block_b // TILE, tiles_per_chunk, stream,
+            a.data_ptr(), b.data_ptr(), a2.data_ptr(), b2.data_ptr(),
+            _ptr(lb), ld_lb, _ptr(cut_a), _ptr(cut_b),
+            min_a.data_ptr(), min_b.data_ptr(), n_a, n_b, plan.ld,
+            int(plan.resident), int(directed), block_a // TILE, block_b // TILE,
+            plan.grid, plan.smem, stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_minscan launch failed: CUDA error {err}")

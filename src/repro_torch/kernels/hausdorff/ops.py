@@ -13,12 +13,14 @@ they do what it requires:
     table block size from caller-supplied projections, or no gate;
   - one launch over all of b: the Pallas kernel chunked b
     (``MAX_RESIDENT_B``) to bound a column-min row held in VMEM, while this
-    kernel folds columns into device memory and splits b across its grid;
+    kernel folds columns into device memory and splits the tile pairs
+    across its grid; directed callers (``min_sqdists``,
+    ``directed_hausdorff``) get the instance with no column fold;
   - the final max-reduce + sqrt, where an all-invalid query side gives 0.0.
 
-Neither D nor the row counts are padded: the kernel masks the ragged edge
-itself and reads D as it is (zero padding would be exact, and is not
-needed).  Pruning callers should pre-sort each cloud along the primary
+The row counts are not padded: the kernel masks the ragged edge itself.
+The launcher zero-pads a D that is not a multiple of 4 and widens bf16
+to fp32 (both exact), since the kernel copies 16-byte fp32 chunks.  Pruning callers should pre-sort each cloud along the primary
 projection (``tile_bounds.order_by_projection``); results are exact either
 way.
 """
@@ -77,8 +79,9 @@ def fused_min_sqdists(
     b-row j to the valid a rows.  Entries of invalid rows are +inf.
     ``prune_projs = (proj_a, proj_b)`` — per-row projections (n, m) onto
     shared unit directions, column 0 primary — gates the tiles; results
-    are unchanged.  ``directed=True`` lets the column side never veto a
-    skip (min_b is then not exact and must be ignored).
+    are unchanged.  ``directed=True`` launches the kernel's row-min-only
+    instance and lets the column side never veto a skip: min_b is then
+    not computed on CUDA and not exact on the CPU, and must be ignored.
     """
     if a.device.type == "cpu" and b.device.type == "cpu":
         return exact.fused_min_sqdists_tiled(
@@ -108,7 +111,7 @@ def fused_min_sqdists(
     min_b = torch.full((n_b,), torch.inf, dtype=torch.float32, device=a.device)
     K.fused_minscan(
         a, b, a2, b2, min_a, min_b, lb=lb, cut_a=cut_a, cut_b=cut_b,
-        block_a=block_a, block_b=block_b,
+        block_a=block_a, block_b=block_b, directed=directed,
     )
     return min_a, min_b
 

@@ -220,16 +220,46 @@ def test_fit_block_is_a_tile_multiple():
     assert ops.fit_block(512, 300) == 384
 
 
+@pytest.mark.parametrize("ctas_per_sm", [1, 2])
 @pytest.mark.parametrize("n_a,n_b", [(8, 8), (41_930, 1 << 20), (4096, 65_536), (1 << 20, 1 << 21)])
-def test_launch_grid_covers_every_tile_pair(n_a, n_b):
-    """One launch covers all of b: the chunks tile the b-tiles exactly,
-    within CUDA's grid.y limit, and a small query side still fills 132 SMs."""
-    tiles_a, n_chunks, per_chunk = K.grid(n_a, n_b, 132)
-    tiles_b = -(-n_b // K.TILE)
-    assert tiles_a == -(-n_a // K.TILE)
-    assert n_chunks <= 65_535 and per_chunk >= 1
-    assert (n_chunks - 1) * per_chunk < tiles_b <= n_chunks * per_chunk
-    assert tiles_a * n_chunks >= min(tiles_a * tiles_b, 132)
+def test_launch_grid_covers_every_tile_pair(n_a, n_b, ctas_per_sm):
+    """One launch covers every tile pair once: the CTAs' pair ranges tile
+    [0, tiles_a·tiles_b) without gap or overlap, and a small query side
+    still fills 132 SMs."""
+    plan = K.launch_plan(n_a, n_b, 256, 132, ctas_per_sm=ctas_per_sm)
+    tiles_a, tiles_b = -(-n_a // K.TILE), -(-n_b // K.TILE)
+    assert plan.n_pairs == tiles_a * tiles_b
+    assert plan.grid == min(plan.n_pairs, 132 * ctas_per_sm) and plan.grid <= 2**31 - 1
+    ranges = [K.pair_range(plan, c) for c in range(plan.grid)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == plan.n_pairs
+    assert all(r[1] == s[0] for r, s in zip(ranges, ranges[1:]))
+    lengths = [e - b for b, e in ranges]
+    assert min(lengths) >= 1 and max(lengths) - min(lengths) <= 1  # balanced to one pair
+    assert plan.grid >= min(plan.n_pairs, 132)
+    # pair p is tile pair (p // tiles_b, p % tiles_b): a bijection onto the grid of tiles
+    last = plan.n_pairs - 1
+    assert divmod(last, tiles_b) == (tiles_a - 1, tiles_b - 1)
+
+
+@pytest.mark.parametrize("d", [1, 3, 17, 256, 784, 4096])
+def test_launch_plan_shared_memory_fits(d):
+    """Every plan stays within a block's 232,448 bytes of shared memory: the
+    a-tile is resident where it fits beside the ring (D up to 288) and a
+    CTA walks enough b-tiles, else streamed; a resident tile that cannot fit
+    is refused."""
+    for n_a, n_b in ((65_536, 65_536), (41_930, 1 << 20), (256, 256), (1 << 20, 128)):
+        plan = K.launch_plan(n_a, n_b, d, 132)
+        assert plan.smem == K.smem_bytes(d, plan.resident) <= K.MAX_SMEM
+        assert plan.ld % 4 == 0 and plan.ld >= d
+        walk = min(-(-n_b // K.TILE), plan.n_pairs // plan.grid)
+        assert plan.resident == (d <= 288 and walk >= 4), (n_a, n_b, d, plan)
+    streamed = K.launch_plan(65_536, 65_536, d, 132, resident=False)
+    assert not streamed.resident and streamed.smem <= K.MAX_SMEM
+    if d <= 288:
+        assert K.launch_plan(256, 256, d, 132, resident=True).resident
+    else:
+        with pytest.raises(ValueError, match="resident"):
+            K.launch_plan(256, 256, d, 132, resident=True)
 
 
 def test_cuda_launcher_refuses_cpu_tensors_and_cpu_path_never_launches():
@@ -238,6 +268,34 @@ def test_cuda_launcher_refuses_cpu_tensors_and_cpu_path_never_launches():
     z = torch.zeros(10)
     with pytest.raises(ValueError, match="CUDA"):
         K.fused_minscan(ta, tb, z, z, z.clone(), z.clone())
+    with pytest.raises(ValueError, match="CUDA"):
+        K.fused_minscan(ta, tb, z, z, z.clone(), z.clone(), directed=True)
     before = K.fused_minscan.launches
     ops.fused_min_sqdists(ta, tb)
+    ops.fused_min_sqdists(ta, tb, directed=True)
     assert K.fused_minscan.launches == before
+
+
+@pytest.mark.parametrize("directed", [1, "yes", None])
+def test_cuda_launcher_validates_directed(directed):
+    a, b = _clouds(2, 10, 10, 3)
+    z = torch.zeros(10)
+    with pytest.raises(TypeError, match="directed"):
+        K.fused_minscan(torch.from_numpy(a), torch.from_numpy(b), z, z, z.clone(), z.clone(),
+                        directed=directed)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_min_sqdists_on_cpu_is_the_plain_row_mins(masked):
+    """The directed wrapper (ProHD's sweeps) on CPU tensors returns the plain
+    version's row mins, bit for bit, and the reference's within tolerance."""
+    a, b = _clouds(7, 300, 450, 19)
+    va, vb = _masks(7, 300, 450) if masked else (None, None)
+    t = lambda x: None if x is None else torch.from_numpy(x)  # noqa: E731
+    got = ops.min_sqdists(t(a), t(b), valid_a=t(va), valid_b=t(vb))
+    want, _ = exact.fused_min_sqdists_tiled(t(a), t(b), valid_a=t(va), valid_b=t(vb),
+                                            block_a=K.TABLE_BLOCK, block_b=K.TABLE_BLOCK)
+    assert torch.equal(got, want)
+    j = lambda x: None if x is None else jnp.asarray(x)  # noqa: E731
+    _assert_entries(got.numpy(), np.asarray(jref.min_dists_ref(jnp.asarray(a), jnp.asarray(b), j(vb))),
+                    va, sqdist_tolerance(19, _scale(a, b)))
