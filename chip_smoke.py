@@ -11,7 +11,8 @@ Phases (each asserts; any failure exits non-zero):
      bf16 on the tensor cores, fp32 on the CUDA cores) from the csrc/
      folders under src/repro_torch/kernels/ into build/kernels/, one nvcc
      per source, started together; ptxas's registers and spills per
-     kernel, and no spill in any of kernel 1's four instances;
+     kernel, and no spill in any of the four instances (resident or
+     streamed tile × directed or bidirectional) of kernels 1, 2 and 3;
   3. kernel vs plain version on the same CUDA tensors (fp32 and bf16, masks,
      empty sides, pruning, a grid whose CTAs walk several tile pairs), per
      min-d² entry within 2·(D+2)·eps32·scale², HD within fp_value_margin
@@ -39,9 +40,13 @@ Phases (each asserts; any failure exits non-zero):
 Kernel 2 and the corpus search:
   3b. the batched bucket scan against its plain version on CUDA tensors
      (shared and per-set queries, a shared slab, ragged caps, an
-     all-invalid set, gated sets, a NaN bound), per min-d² entry within
-     2·(D+2)·eps32·scale²; gated sets +inf, gated vs ungated bitwise, and
-     each lane bitwise against kernel 1 on that set's rows;
+     all-invalid set, gated sets, a NaN bound, many slab tiles, D 1, 3,
+     17, 100 and 256), per min-d² entry within 2·(D+2)·eps32·scale²;
+     gated sets +inf, gated vs ungated bitwise, each lane bitwise against
+     kernel 1 on that set's rows, and every case bitwise equal under five
+     launch plans (planned, 7 CTAs, forced streamed, forced resident query
+     tile where the query is shared, set order 1) in both instances (the
+     directed one's row mins the bidirectional one's);
   8. search: the clustered corpus (16,384 sets, D = 256, sizes 48..256) in
      a SetStore on the card, the certified cascade (top-10) bitwise equal
      to brute force, values within fp_value_margin of float64; one more
@@ -52,16 +57,19 @@ Kernel 2 and the corpus search:
      2,048 sets directed, sequential and anytime ε = 0, each bitwise equal
      to brute force; store build, per-stage and cascade vs brute-force
      times;
-  9. CUDA-event times of kernel 2 on the full cap-256 bucket and on the
-     search's largest stage-2a pass, with its bound, its plain version and
-     torch.cdist + amin as a yardstick.
+  9. CUDA-event times of kernel 2 on the full cap-256, cap-128 and cap-64
+     buckets (stage 1 walks all three) and on the search's largest
+     stage-2a pass, with its bound, its plain version and torch.cdist +
+     amin as a yardstick.
 Kernel 3, search_batch and the serving layer:
   3c. the multi-query bucket scan against its plain version on CUDA
-     tensors (Q 1-16, n_q 1-200, caps 64-256 with ragged validity, D 3-256,
+     tensors (Q 1-16, n_q 1-200, caps 8-256 with ragged validity, D 1-256,
      per-(query, set) gates with a NaN bound, a -inf cut, fully gated rows,
      an all-invalid query, the reference's failing tiny shapes), per min-d²
      entry within 2·(D+2)·eps32·scale²; gated pairs +inf, gated vs ungated
-     bitwise, each pair bitwise equal to kernel 2 with that query;
+     bitwise, each pair bitwise equal to kernel 2 with that query, and
+     every case bitwise equal under the five launch plans of 3b in both
+     instances;
   10. search_batch over phase 8's store: 16 requests over 4 unique queries
      (k 10 and 5), each bitwise equal to its brute force, kernel 3 serving
      stage 2a, then one more (uncounted) run with every kernel-3 wrapper
@@ -374,7 +382,8 @@ def phase_env():
 
 def phase_build():
     """Build the four kernels from the checkout, one nvcc each, started
-    together; every instance of kernel 1 must build without spills."""
+    together; every instance of kernels 1, 2 and 3 must build without
+    spills."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import _build
@@ -388,18 +397,20 @@ def phase_build():
                   pool.submit(F.build)]:
             f.result()
     ptxas = {}
-    kernel1 = {}
+    instances = {}
+    entry = {"fused_minscan": "fused_minscan_kernel", "batched_minscan": "bucket_minscan_kernel",
+             "multiquery_minscan": "bucket_minscan_kernel"}
     for name in launchers():
         logs = sorted(_build.BUILD_DIR.glob(f"{name}-*.log"), key=lambda f: f.stat().st_mtime)
         text = logs[-1].read_text() if logs else ""
         ptxas[name] = [ln.strip() for ln in text.splitlines() if "registers" in ln or "spill" in ln]
-        if name == "fused_minscan":
-            kernel1 = {k: v for k, v in _build.ptxas_report(text).items() if "fused_minscan_kernel" in k}
-    # four instances: {resident, streamed} × {directed, bidirectional}
-    assert len(kernel1) == 4 and all("registers" in v for v in kernel1.values()), kernel1
-    assert all(v.get("spill_bytes") == 0 for v in kernel1.values()), kernel1
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas,
-          "fused_minscan_instances": kernel1})
+        if name in entry:
+            instances[name] = {k: v for k, v in _build.ptxas_report(text).items() if entry[name] in k}
+    # four instances each: {resident, streamed} × {directed, bidirectional}
+    for name, inst in instances.items():
+        assert len(inst) == 4 and all("registers" in v for v in inst.values()), (name, inst)
+        assert all(v.get("spill_bytes") == 0 for v in inst.values()), (name, inst)
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas, "instances": instances})
 
 
 def phase_kernel_vs_plain(seed: int) -> float:
@@ -541,6 +552,48 @@ def plan_independence(gen, sms: int) -> list[dict]:
     return rows
 
 
+def bucket_plans_agree(launch, shapes, n_groups: int, n_sets: int, n_q: int, cap: int, d: int,
+                       shared_query: bool, gated: bool, sms: int) -> dict:
+    """A bucket pass (kernel 2 or 3: ``launch(min_a, min_b, directed=,
+    plan=)`` on fixed operands and gate) bit for bit under five launch plans
+    (planned, 7 CTAs, forced streamed, forced resident query tile where the
+    query is shared, set order 1) and both instances: the directed row mins
+    equal the bidirectional ones and its column mins stay +inf.  A forced
+    resident tile with a per-set query is refused."""
+    import torch
+
+    from repro_torch.kernels.hausdorff import batched as KB
+
+    def plan(**kw):
+        return KB.bucket_launch_plan(n_groups, n_sets, n_q, cap, d, sms, shared_query=shared_query, gated=gated,
+                                     **kw)
+
+    base = plan()
+    plans = {"planned": None, "7 CTAs": base._replace(grid=7), "streamed": plan(resident=False),
+             "set order 1": base._replace(set_step=1)}
+    if shared_query:
+        plans["resident"] = plan(resident=True)
+    else:
+        try:
+            plan(resident=True)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError("a resident tile with a per-set query was accepted")
+    outs = {}
+    for directed in (False, True):
+        for label, p in plans.items():
+            ma = torch.full(shapes[0], torch.inf, device=DEVICE)
+            mb = torch.full(shapes[1], torch.inf, device=DEVICE)
+            launch(ma, mb, directed=directed, plan=p)
+            outs[directed, label] = (ma, mb)
+    ref_a, ref_b = outs[False, "planned"]
+    for (directed, label), (ma, mb) in outs.items():
+        assert torch.equal(ma, ref_a), (label, directed, "row mins")
+        assert torch.isinf(mb).all() if directed else torch.equal(mb, ref_b), (label, directed, "column mins")
+    return {"planned": base._asdict(), "plans": list(plans)}
+
+
 def batched_case(gen, n_sets, n_q, cap, d, *, per_set_q=False, shared_slab=False):
     """Random operands for one kernel-2 case: (q, slab, valid_q, valid_slab)."""
     import torch
@@ -573,6 +626,7 @@ def phase_batched_vs_plain(seed: int) -> float:
     from repro_torch.kernels.hausdorff import hausdorff as K
 
     gen = make_generator(seed + 10, DEVICE)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [
         ("shared query, ragged caps", dict(n_sets=64, n_q=128, cap=256, d=256)),
         ("shared query, two a-tiles, odd D", dict(n_sets=33, n_q=300, cap=200, d=100)),
@@ -580,6 +634,10 @@ def phase_batched_vs_plain(seed: int) -> float:
         ("per-set query (stage 1 pass 1)", dict(n_sets=48, n_q=40, cap=128, d=256, per_set_q=True)),
         ("per-set query, shared slab (stage 1 pass 2)",
          dict(n_sets=48, n_q=24, cap=128, d=256, per_set_q=True, shared_slab=True)),
+        ("shared query, D 1", dict(n_sets=20, n_q=128, cap=64, d=1)),
+        ("per-set query, D 3", dict(n_sets=24, n_q=40, cap=128, d=3, per_set_q=True)),
+        ("shared query, two a-tiles, D 17", dict(n_sets=33, n_q=300, cap=256, d=17)),
+        ("per-set query, many slab tiles (served pairwise)", dict(n_sets=3, n_q=200, cap=2000, d=256, per_set_q=True)),
     ]
     max_err = 0.0
     rows = []
@@ -619,10 +677,19 @@ def phase_batched_vs_plain(seed: int) -> float:
                 K.fused_minscan(qs_.contiguous(), ss_.contiguous(), q2s.contiguous(),
                                 b2s.contiguous(), m_a, m_b)
                 lane_bitwise &= bool(torch.equal(m_a, ua[s]) and torch.equal(m_b, ub[s]))
+            assert lane_bitwise, (label, "kernel 2 lane differs from kernel 1 on the same rows")
+            # every launch plan and both instances, bitwise
+            qe = qp if qp.ndim == 3 else qp.expand(n_sets, *qp.shape)
+            q2e = q2 if q2.ndim == 2 else q2.expand(n_sets, *q2.shape)
+            se = sp if sp.ndim == 3 else sp.expand(n_sets, *sp.shape)
+            b2e = b2 if b2.ndim == 2 else b2.expand(n_sets, *b2.shape)
+            plans = bucket_plans_agree(
+                lambda ma, mb, **kw_: KB.batched_minscan(qe, q2e, se, b2e, ma, mb, lb=lb, cut=cut, **kw_),
+                (ua.shape, ub.shape), 1, n_sets, kw["n_q"], kw["cap"], kw["d"],
+                not kw.get("per_set_q", False), True, sms)
             rows.append({"case": label, "shape": [n_sets, kw["n_q"], kw["cap"], kw["d"]],
                          "max_abs_err": err, "tol": tol, "gated": int(gated.sum()),
-                         "lane_vs_kernel1_bitwise": lane_bitwise})
-            assert lane_bitwise, (label, "kernel 2 lane differs from kernel 1 on the same rows")
+                         "lane_vs_kernel1_bitwise": lane_bitwise, "launch_plans": plans})
     emit({"phase": "batched_vs_plain", "cases": rows, "max_abs_err": max_err})
     return max_err
 
@@ -691,6 +758,7 @@ def phase_multiquery_vs_plain(seed: int) -> float:
     from repro_torch.kernels.hausdorff import batched as KB
 
     gen = make_generator(seed + 20, DEVICE)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     # (label, Q, n_q, S, cap, D, valid rows per set or None for ragged)
     cases = [
         ("one query, one row, cap 64, D 3", 1, 1, 24, 64, 3, None),
@@ -727,8 +795,14 @@ def phase_multiquery_vs_plain(seed: int) -> float:
             assert torch.equal(ua[~gated], ka[~gated]) and torch.equal(ub[~gated], kb[~gated]), label
             same = lanes_vs_kernel2(qs, slab, vq, vs, lb, cut, ka, kb)
             assert same, (label, "kernel 3 pair differs from kernel 2 with the same query")
+            qp, q2 = KB._poison(qs, vq)
+            sp, b2 = KB._poison(slab, vs)
+            plans = bucket_plans_agree(
+                lambda ma, mb, **kw_: KB.multiquery_minscan(qp, q2, sp, b2, ma, mb, lb=lb, cut=cut, **kw_),
+                (ka.shape, kb.shape), nqs, n_sets, n_q, cap, d, True, True, sms)
             rows.append({"case": label, "shape": [nqs, n_q, n_sets, cap, d], "max_abs_err": err, "tol": tol,
-                         "gated_pairs": int(gated.sum()), "pairs_vs_kernel2_bitwise": same})
+                         "gated_pairs": int(gated.sum()), "pairs_vs_kernel2_bitwise": same,
+                         "launch_plans": plans})
     emit({"phase": "multiquery_vs_plain", "cases": rows, "max_abs_err": max_err})
     return max_err
 
@@ -995,15 +1069,18 @@ def phase_search(seed: int) -> dict:
 
 
 def phase_times_batched(corpus: dict, env: dict) -> list[dict]:
-    """Kernel 2 timed on the full cap-256 bucket (ungated) and on the
-    largest stage-2a pass the search made (real lanes computed, pow2 padding
-    lanes gated, as the search ran it)."""
+    """Kernel 2 timed on the full cap-256, cap-128 and cap-64 buckets
+    (ungated; stage 1 walks all three) and on the largest stage-2a pass the
+    search made (real lanes computed, pow2 padding lanes gated, as the
+    search ran it)."""
     import torch
 
     store, q = corpus["store"], corpus["q"]
     q = torch.from_numpy(q).to(DEVICE)
-    bucket = store.packed_buckets()[256]
-    rows = [time_bucket("full cap-256 bucket, ungated", q, bucket.points, bucket.valid, None, None, env)]
+    rows = []
+    for cap in (256, 128, 64):
+        bucket = store.packed_buckets()[cap]
+        rows.append(time_bucket(f"full cap-{cap} bucket, ungated", q, bucket.points, bucket.valid, None, None, env))
     if corpus["passes"]:
         p = max(corpus["passes"], key=lambda a: a["lanes"] * a["capacity"])
         b = store.packed_buckets()[p["capacity"]]

@@ -1,173 +1,145 @@
-// The tile body shared by the bucket scans (batched_minscan.cu, kernel 2,
-// and multiquery_minscan.cu, kernel 3): one CTA of 256 threads folds one
-// 128-row query tile of one (query, set) pair against every 128-row tile
-// of the set, into the pair's row mins and column mins.
+// The tile body of the three min-d² scans for Hopper (sm_90a): kernel 1
+// (fused_minscan.cu) and the bucket scans, kernel 2 (batched_minscan.cu)
+// and kernel 3 (multiquery_minscan.cu).  Every entry
 //
 //     d²(i, j) = max((a2[i] − 2·a_i·b_j) + b2[j], 0)
 //
-// a2 / b2 are the hoisted squared norms with +inf at invalid rows (whose
-// data the wrapper has zeroed), so invalid rows win neither min.  This is
-// kernel 1's tile body (fused_minscan.cu): 8×8 register blocks, k-slices of
-// 8 through double-buffered shared memory, and every dot product one
-// thread's fp32 FFMA chain over k = 0..D-1 in a fixed order.  So the bits
-// of a pair depend on nothing but its rows and norms: any grid, gate or
-// batch gives the same bits, and both kernels equal kernel 1 on the pair.
-// The clamp is `d2 > 0 ? d2 : 0`.
+// is one fmaf chain over k = 0..D−1 in order, from +0, in IEEE fp32 on the
+// CUDA cores, with the epilogue (a2 − 2·acc) + b2 and the clamp
+// `v > 0 ? v : 0` (never fmaxf, so −0.0 cannot reach a fold).  a2 / b2 are
+// the hoisted squared norms with +inf at invalid rows (whose data the
+// wrapper has zeroed), so invalid rows win neither min.  Folds are
+// atomicMin on the fp32 bits as unsigned int into outputs that hold +inf
+// or earlier partial mins (for d² ≥ 0 the unsigned order is the float
+// order, so a fold is exact and independent of the order of CTAs).  An
+// entry's bits therefore depend on nothing but its two rows and norms: the
+// three kernels, any grid, gate, batch or instance give the same bits.
 //
-// Row mins stay in registers across the set's tiles and need no other CTA;
-// column mins are reduced per tile in shared memory.  Both fold into the
-// outputs with atomicMin on the fp32 bit pattern as unsigned int (exact and
-// order-independent for d² ≥ 0), since several query tiles share a set.
-// The ragged edge (rows past n_q or cap, k past D) is masked here.
+// What is shared (designed for kernel 1 first; its notes are in
+// fused_minscan.cu):
+//  * Operands arrive as fp32 rows of `ld` floats (D rounded up to 4),
+//    16-byte aligned, zero past D: a zero k-term leaves the chain's bits
+//    alone, since the accumulator never holds −0.
+//  * A CTA of 256 threads computes 128×128 tile pairs, each thread an 8×8
+//    block in registers, rows ty + 16p and columns tx + 16q, read as
+//    float4 along k from [row][k] stages whose row pitch (BK + 4 floats)
+//    is an odd number of 16-byte units: one wavefront per 4 (a) or 8 (b)
+//    rows, no bank conflict.  Per 4 k a thread issues 16 LDS.128 for 256
+//    FFMA.
+//  * BK-wide k-slices are copied by cp.async (16 B, L2 only, zero-fill past
+//    the ragged row and k edge) into a ring of STAGES slots; a thread sets
+//    up its copy addresses once per tile (TileSrc), so a slice costs no
+//    address arithmetic.
+//
+// The bucket scan of kernels 2 and 3 over this body is bucket_scan.cuh.
 #pragma once
 
 #include <cuda_runtime.h>
 
+// Tuning knobs, overridden only by scripts/minscan_levers.py, which builds
+// variants of kernel 1 to measure what each design lever gives.
+#ifndef MINSCAN_BK
+#define MINSCAN_BK 32
+#endif
+#ifndef MINSCAN_STAGES
+#define MINSCAN_STAGES 3
+#endif
+#ifndef MINSCAN_KK_UNROLL
+#define MINSCAN_KK_UNROLL 8
+#endif
+
 namespace minscan_tile {
 
-constexpr int TILE = 128;               // rows of the query and of a set per tile
-constexpr int BK = 8;                   // k-slice staged per step
-constexpr int THREADS = 256;            // 16 × 16 threads, 8 × 8 entries each
-constexpr int PITCH = TILE + 4;         // padded smem row: conflict-free stores
+constexpr int TILE = 128;                 // rows of a and of b per tile
+constexpr int BK = MINSCAN_BK;            // k-slice per ring slot
+constexpr int STAGES = MINSCAN_STAGES;    // ring slots
+constexpr int KK_UNROLL = MINSCAN_KK_UNROLL;  // 4-k steps of a slice unrolled
+constexpr int THREADS = 256;              // 16 × 16 threads, 8 × 8 entries each
+constexpr int PITCH = BK + 4;             // stage row pitch in floats, odd in 16 B units
+constexpr int SLICE = TILE * PITCH;       // floats of one 128-row k-slice
 constexpr unsigned INF_BITS = 0x7f800000u;
 
-// Thread t stages row (t >> 1) of the tile, k-slots (t & 1)·4 .. +3.
-__device__ __forceinline__ void load_slice(const float* __restrict__ x, int n, int d,
-                                           int row0, int k0, int tid, float (&r)[4]) {
-  const int row = row0 + (tid >> 1);
-  const int k = k0 + (tid & 1) * 4;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(full ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+constexpr int CHUNKS_PER_ROW = BK / 4;                 // 16-byte chunks of a slice row
+constexpr int ROWS_PER_PASS = THREADS / CHUNKS_PER_ROW;  // rows one pass of the CTA copies
+constexpr int PASSES = TILE / ROWS_PER_PASS;             // passes per 128-row slice
+
+// One thread's share of copying a 128-row tile of x (n rows of stride ld
+// floats), set up once per tile so that a slice costs no address
+// arithmetic: the thread moves chunk (tid % CHUNKS_PER_ROW) of rows
+// r0 + ROWS_PER_PASS·i, r0 = tid / CHUNKS_PER_ROW, so a warp reads whole
+// row segments.
+struct TileSrc {
+  const float* row;  // x + (row0 + r0)·ld + kc
+  unsigned ok;       // bit i: row row0 + r0 + ROWS_PER_PASS·i < n
+};
+
+__device__ __forceinline__ TileSrc tile_src(const float* x, int n, int ld, int row0, int tid) {
+  const int r0 = tid / CHUNKS_PER_ROW;
+  const int kc = (tid % CHUNKS_PER_ROW) * 4;
+  TileSrc t{x + static_cast<long long>(row0 + r0) * ld + kc, 0u};
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    r[q] = (row < n && k + q < d) ? x[(long long)row * d + k + q] : 0.f;
+  for (int i = 0; i < PASSES; ++i) t.ok |= (row0 + r0 + i * ROWS_PER_PASS < n ? 1u : 0u) << i;
+  return t;
+}
+
+// Copy k0..k0+BK−1 of the tile into one [row][PITCH] slice (zero-fill past
+// the ragged row and k edge; x is a safe address for the empty copies).
+__device__ __forceinline__ void load_slice(float* __restrict__ dst, const TileSrc& t, const float* x,
+                                           long long pass_stride, int ld, int k0, int tid) {
+  const int kc = (tid % CHUNKS_PER_ROW) * 4;
+  float* d = dst + (tid / CHUNKS_PER_ROW) * PITCH + kc;
+  const bool k_ok = k0 + kc < ld;
+#pragma unroll
+  for (int i = 0; i < PASSES; ++i) {
+    const bool ok = k_ok && ((t.ok >> i) & 1u);
+    cp_async16(d + i * ROWS_PER_PASS * PITCH, ok ? t.row + i * pass_stride + k0 : x, ok);
   }
 }
 
-__device__ __forceinline__ void store_slice(float (*s)[PITCH], int tid, const float (&r)[4]) {
-  const int row = tid >> 1;
-  const int k = (tid & 1) * 4;
+// acc[p][q] += Σ_k a[ty + 16p][k] · b[tx + 16q][k] over one BK-wide slice,
+// one fmaf per k in ascending order.
+__device__ __forceinline__ void mma_slice(const float* __restrict__ as, const float* __restrict__ bs,
+                                          int ty, int tx, float (&acc)[8][8]) {
+  const float* ap = as + ty * PITCH;
+  const float* bp = bs + tx * PITCH;
+#pragma unroll (KK_UNROLL)
+  for (int kk = 0; kk < BK; kk += 4) {
+    float4 av[8];
 #pragma unroll
-  for (int q = 0; q < 4; ++q) s[k + q][row] = r[q];
-}
-
-// Local row / column of a thread's q-th entry: two groups of 4, 64 apart.
-__device__ __forceinline__ int local_index(int t16, int q) {
-  return (q < 4) ? t16 * 4 + q : 64 + t16 * 4 + (q - 4);
-}
-
-// One CTA: query rows row0 .. row0+127 of `a` (n_q rows, norms a2) against
-// every tile of the set `b` (cap rows, norms bn), folded into out_a (n_q,)
-// and out_b (cap,), which hold +inf or earlier partial mins.
-__device__ __forceinline__ void scan_pair(const float* __restrict__ a, const float* __restrict__ a2,
-                                          const float* __restrict__ b, const float* __restrict__ bn,
-                                          unsigned* __restrict__ out_a, unsigned* __restrict__ out_b,
-                                          int n_q, int cap, int d, int row0) {
-  __shared__ __align__(16) float As[2][BK][PITCH];
-  __shared__ __align__(16) float Bs[2][BK][PITCH];
-  __shared__ unsigned col_min_s[TILE];
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int n_tiles_b = (cap + TILE - 1) / TILE;
-  const int n_k = (d + BK - 1) / BK;
-
-  float row_min[8];
+    for (int p = 0; p < 8; ++p) av[p] = *reinterpret_cast<const float4*>(ap + p * 16 * PITCH + kk);
 #pragma unroll
-  for (int r = 0; r < 8; ++r) row_min[r] = __int_as_float(0x7f800000);
-
-  for (int tj = 0; tj < n_tiles_b; ++tj) {
-    const int col0 = tj * TILE;
-    // Same thread resets the slot it flushed for the previous tile.
-    if (tid < TILE) col_min_s[tid] = INF_BITS;
-
-    float acc[8][8];
+    for (int q = 0; q < 8; ++q) {
+      const float4 bv = *reinterpret_cast<const float4*>(bp + q * 16 * PITCH + kk);
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-    float ra[4], rb[4];
-    load_slice(a, n_q, d, row0, 0, tid, ra);
-    load_slice(b, cap, d, col0, 0, tid, rb);
-    store_slice(As[0], tid, ra);
-    store_slice(Bs[0], tid, rb);
-    __syncthreads();
-
-    for (int ks = 0; ks < n_k; ++ks) {
-      const int cur = ks & 1;
-      const bool more = ks + 1 < n_k;
-      if (more) {
-        load_slice(a, n_q, d, row0, (ks + 1) * BK, tid, ra);
-        load_slice(b, cap, d, col0, (ks + 1) * BK, tid, rb);
+      for (int p = 0; p < 8; ++p) {
+        float t = acc[p][q];
+        t = fmaf(av[p].x, bv.x, t);
+        t = fmaf(av[p].y, bv.y, t);
+        t = fmaf(av[p].z, bv.z, t);
+        t = fmaf(av[p].w, bv.w, t);
+        acc[p][q] = t;
       }
-#pragma unroll
-      for (int k = 0; k < BK; ++k) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][k][ty * 4]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][k][64 + ty * 4]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][k][tx * 4]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&Bs[cur][k][64 + tx * 4]);
-        const float fa[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float fb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(fa[i], fb[j], acc[i][j]);
-      }
-      if (more) {
-        store_slice(As[cur ^ 1], tid, ra);
-        store_slice(Bs[cur ^ 1], tid, rb);
-      }
-      __syncthreads();
-    }
-
-    // Norms are read here, not held across the k-loop: registers are scarce.
-    float a2r[8], b2r[8];
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int i = row0 + local_index(ty, r);
-      const int j = col0 + local_index(tx, r);
-      a2r[r] = (i < n_q) ? a2[i] : __int_as_float(0x7f800000);
-      b2r[r] = (j < cap) ? bn[j] : __int_as_float(0x7f800000);
-    }
-    float col_min[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) col_min[j] = __int_as_float(0x7f800000);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float v = (a2r[i] - 2.f * acc[i][j]) + b2r[j];
-        v = v > 0.f ? v : 0.f;
-        row_min[i] = fminf(row_min[i], v);
-        col_min[j] = fminf(col_min[j], v);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      col_min[j] = fminf(col_min[j], __shfl_xor_sync(0xffffffffu, col_min[j], 16));
-    }
-    if ((tid & 16) == 0) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) atomicMin(&col_min_s[local_index(tx, j)], __float_as_uint(col_min[j]));
-    }
-    __syncthreads();
-    if (tid < TILE && col0 + tid < cap && col_min_s[tid] != INF_BITS) {
-      atomicMin(&out_b[col0 + tid], col_min_s[tid]);
     }
   }
+}
 
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float v = row_min[i];
-    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 8));
-    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 4));
-    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-    const int r = row0 + local_index(ty, i);
-    if (tx == 0 && r < n_q && __float_as_uint(v) != INF_BITS) {
-      atomicMin(&out_a[r], __float_as_uint(v));
-    }
-  }
+// Dynamic shared memory of one CTA for rows of stride ld floats: the
+// resident tile's k-slices (if any), the ring (one slice a slot resident,
+// two streamed) and the two column-min rows.
+inline int smem_bytes(int ld, int resident) {
+  const int n_k = (ld + BK - 1) / BK;
+  const int slices = resident ? n_k + STAGES : 2 * STAGES;
+  return slices * SLICE * static_cast<int>(sizeof(float)) + 2 * TILE * static_cast<int>(sizeof(unsigned));
 }
 
 }  // namespace minscan_tile

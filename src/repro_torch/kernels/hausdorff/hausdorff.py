@@ -99,8 +99,8 @@ class LaunchPlan(NamedTuple):
 
 
 def pair_range(plan: LaunchPlan, cta: int) -> tuple[int, int]:
-    """The tile pairs ``[begin, end)`` that CTA ``cta`` walks, as the kernel
-    computes them."""
+    """The tile pairs ``[begin, end)`` that CTA ``cta`` walks, as the kernels
+    compute them (kernel 1's plan, or a ``batched.BucketPlan``)."""
     return plan.n_pairs * cta // plan.grid, plan.n_pairs * (cta + 1) // plan.grid
 
 
@@ -144,12 +144,13 @@ def _planned(n_a: int, n_b: int, d: int, directed: bool, device: int) -> LaunchP
 
 
 def _staged(x: torch.Tensor, ld: int) -> torch.Tensor:
-    """x as the kernel reads it: fp32 rows of ``ld`` floats, 16-byte aligned,
-    zero past D.  Widening bf16 and zero-padding D are exact."""
-    if x.dtype == torch.float32 and x.shape[1] == ld and x.data_ptr() % 16 == 0:
+    """x (..., D) as the kernels read it: contiguous fp32 rows of ``ld``
+    floats, 16-byte aligned, zero past D.  Widening bf16 and zero-padding D
+    are exact; a tensor already so is not copied."""
+    if x.dtype == torch.float32 and x.shape[-1] == ld and x.is_contiguous() and x.data_ptr() % 16 == 0:
         return x
-    out = torch.zeros((x.shape[0], ld), dtype=torch.float32, device=x.device)
-    out[:, : x.shape[1]] = x
+    out = torch.zeros((*x.shape[:-1], ld), dtype=torch.float32, device=x.device)
+    out[..., : x.shape[-1]] = x
     return out
 
 

@@ -28,6 +28,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.hausdorff import batched as jbatched  # noqa: E402
 from repro_torch.core.fp_margin import fp_value_margin, sqdist_tolerance  # noqa: E402
 from repro_torch.kernels.hausdorff import batched as B  # noqa: E402
+from repro_torch.kernels.hausdorff import hausdorff as K  # noqa: E402
 
 
 def _t(x):
@@ -219,3 +220,43 @@ def test_cuda_launcher_refuses_cpu_tensors_and_cpu_path_never_launches():
     out_a, out_b = torch.zeros(2, 3, 5), torch.zeros(2, 3, 8)
     with pytest.raises(ValueError, match="CUDA"):
         B.multiquery_minscan(_t(qs), q2, _t(slab), b2, out_a, out_b)
+
+
+@pytest.mark.parametrize("gated", [False, True], ids=["ungated", "gated"])
+def test_directed_row_mins_are_bitwise_the_bidirectional_ones(gated):
+    """``directed=True`` returns the bidirectional call's row mins bit for
+    bit and leaves every column min +inf; the directed HD is the one the
+    bidirectional mins give."""
+    shape = (3, 13, 6, 24, 7)
+    qs, vq, slab, vs = _case(21, *shape)
+    kw = dict(valid_qs=_t(vq), valid_slab=_t(vs))
+    if gated:
+        lb, cut = _gate(21, shape[0], shape[2])
+        kw.update(lb=_t(lb), cut=_t(cut))
+    ha, hb = B.multiquery_min_sqdists(_t(qs), _t(slab), **kw)
+    da, db = B.multiquery_min_sqdists(_t(qs), _t(slab), directed=True, **kw)
+    assert torch.equal(da, ha) and torch.isinf(db).all() and db.shape == hb.shape
+    h = B.multiquery_bucket_hd(_t(qs), _t(slab), directed=True, **kw)
+    assert torch.equal(h, B._finalize_lanes(ha, _t(vq)[:, None, :]))
+
+
+@pytest.mark.parametrize("bad", ["pairs", "ld", "smem", "grid", "set_step not coprime", "set_step 0"])
+def test_launcher_refuses_bad_plans(bad):
+    """Kernel 3's launcher checks a given plan against the pass (Q groups of
+    one shared query) before it looks for a card."""
+    n_queries, n_q, n_sets, cap, d = 3, 130, 4, 64, 6
+    args = (torch.zeros(n_queries, n_q, d), torch.zeros(n_queries, n_q), torch.zeros(n_sets, cap, d),
+            torch.zeros(n_sets, cap), torch.zeros(n_queries, n_sets, n_q), torch.zeros(n_queries, n_sets, cap))
+    good = B.bucket_launch_plan(n_queries, n_sets, n_q, cap, d, 132, shared_query=True, resident=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        B.multiquery_minscan(*args, plan=good)
+    plan = {
+        "pairs": good._replace(n_pairs=good.n_pairs - 1),
+        "ld": good._replace(ld=4 * good.ld),
+        "smem": good._replace(smem=K.smem_bytes(d, False)),
+        "grid": good._replace(grid=-1),
+        "set_step not coprime": good._replace(set_step=2),
+        "set_step 0": good._replace(set_step=0),
+    }[bad]
+    with pytest.raises(ValueError, match="does not fit"):
+        B.multiquery_minscan(*args, plan=plan)
