@@ -31,6 +31,21 @@ Phases (each asserts; any failure exits non-zero):
      4's exact value at 262,144 per side (exact ground truth at 1M per
      side is cut for time);
   6. directed, partial and chamfer at 65,536 × 65,536, D = 256;
+  6b. methods: on phase 4's clouds, random and systematic sampling at
+     α = 0.01 (5 generator seeds; each value within fp_value_margin of
+     the float64 HD of the same subsets, recovered by replaying the
+     generator's state), adaptive ProHD (relative budget 0.1) and ProHD
+     with rsvd and subspace PCA (each certificate brackets phase 4's
+     exact H), all under auto on fused_cuda; ProHD's relative error
+     against each sampler's median (reported); times at phase 5's
+     1,048,576² Random Clouds;
+  6c. drift: the streaming drift monitor over 1,048,576 × 256 Gaussian
+     reference embeddings, a 65,536-vector reservoir, 32 batches of
+     8,192 with every coordinate shifted by 4 from batch 16 on,
+     check_drift (ProHD α 0.05 on kernel 1) after every 4th batch: no
+     alert before the shift, an alert after it at a threshold between
+     the exact H before and after, the last interval bracketing the
+     exact H; init, observe and check times;
   7. CUDA-event times (median of 5 after warm-up) of the kernel, its bound,
      its plain version and torch.cdist + amin as a yardstick, at 65,536²
      (bidirectional) and at ProHD's sweep shape (over 65,536-column
@@ -112,9 +127,9 @@ the seed):
      64/8 of 128, causal, with its bound, its plain version and
      scaled_dot_product_attention as a yardstick.
 
-Each main path (phases 4-6: set_distance; phase 8: search; phases 10 and
-10b: search_batch; phase 11: the served paths; phase 14: each prefill_step
-and the decode loop) runs with the kernels' launch counters set to 0 just
+Each main path (phases 4-6: set_distance; 6b and 6c, each its own; phase
+8: search; phases 10 and 10b: search_batch; phase 11: the served paths;
+phase 14: each prefill_step and the decode loop) runs with the kernels' launch counters set to 0 just
 before it and read just after; launches made only to compare a kernel with
 its plain version are taken back out.
 Prints JSON lines; the last line is {"ok": true, "device": {...}}.
@@ -160,6 +175,24 @@ N_VARIANT = 65_536
 D = 256
 SWEEP_QUERIES = 41_930
 CDIST_CHUNK = 65_536  # b-columns per torch.cdist call at the sweep shape (11 GB fp32)
+# Phase 6b: the paper's sampling baselines at α = 0.01 under 5 generator
+# seeds, adaptive ProHD (relative budget 0.1) and ProHD on the randomised
+# PCA backends, on phase 4's clouds; times on phase 5's Random Clouds.
+SAMPLE_ALPHA = 0.01
+SAMPLE_SEEDS = 5
+ADAPTIVE_BUDGET = 0.1
+# Phase 6c: the drift monitor over a vector database's embeddings — a fixed
+# reference of 1,048,576 Gaussian vectors at D, a 65,536-vector reservoir,
+# 32 batches of 8,192, every coordinate shifted by DRIFT_SHIFT from batch 16
+# on, check_drift after every 4th batch, an alert above DRIFT_THRESHOLD.
+N_DRIFT_REF = 1_048_576
+DRIFT_WINDOW = 65_536
+DRIFT_BATCH = 8_192
+DRIFT_BATCHES = 32
+DRIFT_SHIFT_AT = 16
+DRIFT_CHECK_EVERY = 4
+DRIFT_SHIFT = 4.0
+DRIFT_THRESHOLD = 40.0
 # The retrieval corpus: the repo's own corpus settings (benchmarks/tables.py,
 # clustered_sets with sizes 48..256 step 8, 32 clusters, spread 10, σ 0.5)
 # at the paper's D = 256; the query is 128 points around set 0's centroid.
@@ -1546,6 +1579,7 @@ def phase_prohd(seed: int, a_exact, b_exact, h_exact: float, scale_exact: float)
                           "lower": lo, "upper": up, "margin": m, "rel_err": (h_exact - v) / h_exact,
                           "elapsed_s": res.meta.elapsed_s}
     emit(out)
+    return out
 
 
 def phase_variants(seed: int):
@@ -1568,6 +1602,177 @@ def phase_variants(seed: int):
         rows.append({"variant": variant, "value": v, "tiled_value": r, "margin": margin,
                      "elapsed_s": res.meta.elapsed_s})
     emit({"phase": "variants", "n": N_VARIANT, "d": D, "runs": rows})
+
+
+def launched(call):
+    """``call()`` and the kernel-1 launches it made (which must be some)."""
+    from repro_torch.kernels.hausdorff import hausdorff as K
+
+    before = K.fused_minscan.launches
+    out = call()
+    n = K.fused_minscan.launches - before
+    assert n > 0, "the call did not launch kernel 1"
+    return out, n
+
+
+def phase_methods(seed: int, a, b, h_exact: float, scale: float, prohd_out: dict) -> dict:
+    """set_distance's randomised cells on the card: random and systematic
+    sampling, adaptive ProHD, ProHD with rsvd and subspace PCA, each under
+    ``auto`` (fused_cuda, kernel 1).  Values on phase 4's clouds, times on
+    phase 5's Random Clouds."""
+    import torch
+
+    from repro_torch.core import sampling
+    from repro_torch.core.fp_margin import fp_value_margin
+    from repro_torch.core.prohd import ProHDConfig
+    from repro_torch.data.pointclouds import make_generator, random_clouds
+    from repro_torch.hd import HDConfig, set_distance
+
+    n = a.shape[0]
+    m_exact = float(fp_value_margin(D, scale, h_exact))
+    out = {"phase": "methods", "n": n, "d": D, "exact": h_exact, "margin": m_exact, "samplers": {}}
+    for sampler in sampling.SAMPLERS:
+        cfg = HDConfig(alpha=SAMPLE_ALPHA, sampler=sampler)
+        runs = []
+        for s in range(SAMPLE_SEEDS):
+            gen = make_generator(seed * 100 + 40 + s, DEVICE)
+            state = gen.get_state()
+            res, launches = launched(lambda: set_distance(a, b, method="sampling", config=cfg, generator=gen,
+                                                          measure=True))
+            assert res.meta.backend == "fused_cuda", res.meta
+            # The same draw, replayed: its subsets' float64 HD.
+            replay = torch.Generator(device=DEVICE)
+            replay.set_state(state)
+            ia, ib = sampling.draw_indices(replay, n, b.shape[0], SAMPLE_ALPHA, sampler)
+            assert ia.numel() + ib.numel() == res.stats["n_sampled"], res.stats
+            v = float(res.value)
+            h_sub = hd64(a[ia].cpu().numpy(), b[ib].cpu().numpy(), False)
+            margin = float(fp_value_margin(D, scale, h_sub))
+            assert abs(v - h_sub) <= margin, (sampler, s, v, h_sub, margin)
+            runs.append({"seed": s, "value": v, "subset_hd64": h_sub, "margin": margin,
+                         "n_sampled": res.stats["n_sampled"], "rel_err": abs(v - h_exact) / h_exact,
+                         "launches": launches, "elapsed_s": res.meta.elapsed_s})
+        out["samplers"][sampler] = {"runs": runs,
+                                    "median_rel_err": statistics.median(r["rel_err"] for r in runs)}
+
+    # ProHD's error (phase 5's α = 0.01, gram, same clouds) against each
+    # sampler's median: the paper's "5–20× lower error" claim, reported.
+    err_prohd = abs(prohd_out["certificate"]["rel_err"])
+    out["prohd_rel_err"] = err_prohd
+    out["sampler_err_over_prohd_err"] = {
+        k: (v["median_rel_err"] / err_prohd if err_prohd > 0 else None) for k, v in out["samplers"].items()}
+
+    def certified(label, res, launches):
+        v, lo, up = float(res.value), float(res.lower), float(res.upper)
+        assert res.meta.backend == "fused_cuda", (label, res.meta)
+        assert v <= h_exact + m_exact and lo <= h_exact + m_exact and h_exact <= up + m_exact, (
+            label, v, lo, up, h_exact, m_exact)
+        return {"value": v, "lower": lo, "upper": up, "rel_err": (h_exact - v) / h_exact,
+                "launches": launches, "elapsed_s": res.meta.elapsed_s}
+
+    acfg = HDConfig(budget=ADAPTIVE_BUDGET, budget_relative=True)
+    res, launches = launched(lambda: set_distance(a, b, method="adaptive", config=acfg, measure=True))
+    ad = res.stats["adaptive"]
+    out["adaptive"] = {**certified("adaptive", res, launches), "budget": ADAPTIVE_BUDGET, "relative": True,
+                       "steps": ad.steps, "alpha": ad.alpha, "m": ad.m, "met_budget": ad.met_budget,
+                       "certified_gap": ad.certified_gap}
+    out["pca"] = {}
+    for method in ("rsvd", "subspace"):
+        pcfg = HDConfig(prohd=ProHDConfig(alpha=SAMPLE_ALPHA, pca_method=method))
+        gen = make_generator(seed * 100 + 50, DEVICE)
+        res, launches = launched(lambda: set_distance(a, b, method="prohd", config=pcfg, generator=gen,
+                                                      measure=True))
+        out["pca"][method] = certified(method, res, launches)
+
+    # Times at 1,048,576² (phase 5's Random Clouds), beside phase 5's gram ProHD.
+    a5, b5 = random_clouds(make_generator(seed + 2, DEVICE), N_PROHD, N_PROHD, D)
+    gen = make_generator(seed * 100 + 60, DEVICE)
+    calls = {f"sampling_{k}": (dict(method="sampling", generator=gen,
+                                    config=HDConfig(alpha=SAMPLE_ALPHA, sampler=k)))
+             for k in sampling.SAMPLERS}
+    for method in ("rsvd", "subspace"):
+        calls[f"prohd_{method}"] = dict(method="prohd", generator=gen,
+                                        config=HDConfig(prohd=ProHDConfig(alpha=SAMPLE_ALPHA, pca_method=method)))
+    times = {"prohd_gram": prohd_out["runs"][0]["elapsed_s"]}
+    for label, kw in calls.items():
+        (res, t), launches = launched(lambda: timed_calls(lambda: set_distance(a5, b5, measure=True, **kw)))
+        assert res.meta.backend == "fused_cuda", (label, res.meta)
+        times[label] = {**t, "launches": launches}
+    out["times_1m"] = {"n": N_PROHD, **times}
+    del a5, b5
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def phase_drift(seed: int) -> dict:
+    """The drift monitor as a vector database runs it: a fixed reference of
+    N_DRIFT_REF embeddings, a DRIFT_WINDOW reservoir fed DRIFT_BATCHES
+    batches, a shift from batch DRIFT_SHIFT_AT on, check_drift (ProHD on
+    kernel 1) after every DRIFT_CHECK_EVERY-th batch."""
+    import torch
+
+    from repro_torch.core.fp_margin import fp_value_margin
+    from repro_torch.core.prohd import ProHDConfig
+    from repro_torch.core.streaming import DriftMonitorConfig, check_drift, init_drift_monitor, observe
+    from repro_torch.data.pointclouds import make_generator
+    from repro_torch.hd import set_distance
+
+    gen = make_generator(seed + 20, DEVICE)
+    reference = torch.randn((N_DRIFT_REF, D), generator=gen, device=DEVICE)
+    cfg = DriftMonitorConfig(window=DRIFT_WINDOW, dim=D, threshold=DRIFT_THRESHOLD,
+                             prohd=ProHDConfig(alpha=0.05, subset_backend="cuda"))
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    state, init_s = synced(lambda: init_drift_monitor(cfg, reference, make_generator(seed + 21, DEVICE)))
+    observe_s, checks = [], []
+
+    def exact_h():
+        res, launches = launched(lambda: set_distance(state.reference, state.buffer, measure=True))
+        assert res.meta.backend == "fused_cuda", res.meta
+        return float(res.value), res.meta.elapsed_s
+
+    h_before = None
+    for i in range(DRIFT_BATCHES):
+        batch = torch.randn((DRIFT_BATCH, D), generator=gen, device=DEVICE)
+        if i >= DRIFT_SHIFT_AT:
+            batch += DRIFT_SHIFT
+        state, t = synced(lambda: observe(state, batch))
+        observe_s.append(t)
+        if (i + 1) % DRIFT_CHECK_EVERY:
+            continue
+        (rep, t), launches = launched(lambda: synced(lambda: check_drift(state, cfg)))
+        row = {"after_batch": i + 1, "count": state.count, "shifted": i >= DRIFT_SHIFT_AT,
+               "hd": float(rep.hd), "lower": float(rep.lower), "upper": float(rep.upper),
+               "alert": bool(rep.alert), "launches": launches, "check_s": t}
+        assert row["alert"] == row["shifted"], row  # no alert before the shift, an alert after
+        checks.append(row)
+        if i + 1 == DRIFT_SHIFT_AT:
+            h_before, row["exact_s"] = exact_h()
+            row["exact"] = h_before
+    h_after, exact_s = exact_h()
+    scale = scale_of(state.reference, state.buffer)
+    last = checks[-1]
+    margin = float(fp_value_margin(D, scale, h_after))
+    assert last["lower"] <= h_after + margin and h_after <= last["upper"] + margin, (last, h_after, margin)
+    # The threshold lies between the exact H before the shift and after it.
+    assert h_before < DRIFT_THRESHOLD < h_after, (h_before, DRIFT_THRESHOLD, h_after)
+    out = {"phase": "drift", "n_ref": N_DRIFT_REF, "d": D, "window": DRIFT_WINDOW, "batch": DRIFT_BATCH,
+           "batches": DRIFT_BATCHES, "shift_at": DRIFT_SHIFT_AT, "shift": DRIFT_SHIFT,
+           "threshold": DRIFT_THRESHOLD, "alpha": cfg.prohd.alpha, "exact_before": h_before,
+           "exact_after": h_after, "exact_after_s": exact_s, "margin": margin, "checks": checks,
+           "init_s": init_s, "observe_median_s": statistics.median(observe_s),
+           "check_median_s": statistics.median(r["check_s"] for r in checks)}
+    del state, reference
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
 
 
 def scan_bound(peak: float, n_a: int, n_b: int, directed: bool) -> tuple[float, str]:
@@ -2033,10 +2238,8 @@ def main() -> int:
     t0 = time.perf_counter()
     a, b, h, scale, exact_err = phase_exact(args.seed)
     launches_exact = K.fused_minscan.launches
-    phase_prohd(args.seed, a, b, h, scale)
+    prohd_out = phase_prohd(args.seed, a, b, h, scale)
     launches_prohd = K.fused_minscan.launches - launches_exact
-    del a, b
-    torch.cuda.empty_cache()
     phase_variants(args.seed)
     pair_launches = K.fused_minscan.launches
     assert launches_exact > 0 and launches_prohd > 0, (launches_exact, launches_prohd)
@@ -2044,6 +2247,21 @@ def main() -> int:
     emit({"phase": "main_path", "path": "set_distance", "launches": pair_launches,
           "exact_launches": launches_exact, "prohd_launches": launches_prohd,
           "wall_s": time.perf_counter() - t0})
+
+    # Main paths 1b and 1c: set_distance's randomised cells, the drift monitor.
+    side_launches = {}
+    for path, run in (("methods", lambda: phase_methods(args.seed, a, b, h, scale, prohd_out)),
+                      ("drift", lambda: phase_drift(args.seed))):
+        zero_counts()
+        t0 = time.perf_counter()
+        run()
+        side_launches[path] = counts()
+        assert side_launches[path]["fused_minscan"] > 0, (path, side_launches[path])
+        assert sum(side_launches[path].values()) == side_launches[path]["fused_minscan"], side_launches[path]
+        emit({"phase": "main_path", "path": path, "launches": side_launches[path],
+              "wall_s": time.perf_counter() - t0})
+    del a, b
+    torch.cuda.empty_cache()
 
     # Main path 2: the corpus search.
     zero_counts()
@@ -2097,7 +2315,9 @@ def main() -> int:
 
     emit({"kernels": [
         kernel_entry("fused_minscan", "cuda", KERNEL_SOURCE, TPU_KERNEL,
-                     pair_launches + total("fused_minscan"), max(max_err, exact_err), rows),
+                     pair_launches + total("fused_minscan")
+                     + sum(c["fused_minscan"] for c in side_launches.values()),
+                     max(max_err, exact_err), rows),
         kernel_entry("batched_minscan", "cuda", KERNEL2_SOURCE, TPU_KERNEL2,
                      total("batched_minscan"), max_err2, rows2, held2),
         kernel_entry("multiquery_minscan", "cuda", KERNEL3_SOURCE, TPU_KERNEL3,

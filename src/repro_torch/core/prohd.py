@@ -99,23 +99,27 @@ def _subset_hd(a_sel, va, b_sel, vb, cfg: ProHDConfig, prune_projs=None) -> torc
     )
 
 
-def prohd_masks(a, b, cfg: ProHDConfig) -> selection.SelectionResult:
+def prohd_masks(a, b, cfg: ProHDConfig, *, generator: torch.Generator | None = None
+                ) -> selection.SelectionResult:
     """Selection step only (Alg. 3 lines 1-4): masks + projections."""
     m = cfg.resolve_m(a.shape[1])
-    dirs = projections.direction_set(a, b, m, method=cfg.pca_method)
+    dirs = projections.direction_set(a, b, m, method=cfg.pca_method, generator=generator)
     return selection.select_extremes(a, b, dirs, alpha=cfg.alpha, alpha_pca=cfg.alpha_pca)
 
 
-def prohd(a: torch.Tensor, b: torch.Tensor, cfg: ProHDConfig = ProHDConfig()) -> ProHDEstimate:
+def prohd(a: torch.Tensor, b: torch.Tensor, cfg: ProHDConfig = ProHDConfig(), *,
+          generator: torch.Generator | None = None) -> ProHDEstimate:
     """Full ProHD (Alg. 3): select extremes, exact HD on the selected subsets.
 
     a: (n_a, D), b: (n_b, D) on one device.  With ``inner="full"``, ``hd``
     never overestimates H(A,B); ``hd_proj + bound`` never underestimates it.
+    ``generator`` (on the clouds' device) drives the randomised PCA
+    backends (``pca_method="rsvd"`` or ``"subspace"``), which require it.
     """
     n_a, d = a.shape
     n_b = b.shape[0]
     m = cfg.resolve_m(d)
-    mask_a, mask_b, proj_a, proj_b = prohd_masks(a, b, cfg)
+    mask_a, mask_b, proj_a, proj_b = prohd_masks(a, b, cfg, generator=generator)
 
     if cfg.prune:
         # HD is a set metric: a consistent row permutation changes nothing,

@@ -20,7 +20,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["random_clouds", "gaussian_mixture_pca", "make_generator", "clustered_sets"]
+__all__ = [
+    "random_clouds",
+    "gaussian_mixture_pca",
+    "higgs_like",
+    "make_generator",
+    "clustered_sets",
+]
 
 
 def make_generator(seed: int, device="cuda") -> torch.Generator:
@@ -60,6 +66,18 @@ def gaussian_mixture_pca(
     cb = torch.randint(0, n_modes, (n_b,), generator=gen, device=dev)
     a = torch.randn((n_a, d), generator=gen, device=dev).mul_(scales).add_(centers_a[ca])
     b = torch.randn((n_b, d), generator=gen, device=dev).mul_(scales).add_(centers_b[cb])
+    return a.to(dtype), b.to(dtype)
+
+
+def higgs_like(gen: torch.Generator, n_a: int, n_b: int, *, d: int = 28, dtype=torch.float32):
+    """Higgs proxy: two overlapping anisotropic clouds at D = 28 (signal vs
+    background share most of the feature space; tails differ)."""
+    dev = gen.device
+    mixing = torch.randn((d, d), generator=gen, device=dev) / d**0.5
+    a = torch.randn((n_a, d), generator=gen, device=dev) @ mixing
+    shift = torch.zeros(d, device=dev)
+    shift[: d // 4] = 0.8
+    b = torch.randn((n_b, d), generator=gen, device=dev) @ mixing * 1.15 + shift
     return a.to(dtype), b.to(dtype)
 
 

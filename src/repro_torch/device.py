@@ -13,6 +13,12 @@ where the port does its matmuls.
 The LM path (``repro_torch.models``) is bf16 and exempt from the IEEE-fp32
 rule for its bf16 products; :func:`lm_precision` is its rule, held only for
 the duration of an LM entry point's call.
+
+Randomness rule: a randomised entry point draws from an explicit
+``torch.Generator`` (the counterpart of the reference's ``key=``), which
+must live on the device of the tensors it draws for
+(:func:`check_generator`); :func:`clone_generator` copies one so that a
+functional state can advance the copy and leave the original as it was.
 """
 from __future__ import annotations
 
@@ -21,7 +27,15 @@ import contextlib
 import numpy as np
 import torch
 
-__all__ = ["strict_fp32", "lm_precision", "resolve_device", "as_tensor", "as_mask"]
+__all__ = [
+    "strict_fp32",
+    "lm_precision",
+    "resolve_device",
+    "as_tensor",
+    "as_mask",
+    "check_generator",
+    "clone_generator",
+]
 
 
 def strict_fp32() -> None:
@@ -80,3 +94,24 @@ def as_mask(v, device) -> torch.Tensor | None:
     if v is None:
         return None
     return as_tensor(v, device).to(torch.bool)
+
+
+def check_generator(generator: torch.Generator, device: torch.device, what: str) -> torch.Generator:
+    """``generator`` itself when it draws on ``device``'s kind; a CPU
+    generator cannot drive a CUDA draw, nor a CUDA one a CPU draw."""
+    if not isinstance(generator, torch.Generator):
+        raise ValueError(f"{what} needs a torch.Generator, got {type(generator).__name__}")
+    if generator.device.type != torch.device(device).type:
+        raise ValueError(
+            f"{what}: the generator is on {generator.device.type!r} but the data is on "
+            f"{torch.device(device).type!r}; make the generator on the data's device "
+            "(torch.Generator(device=...))"
+        )
+    return generator
+
+
+def clone_generator(generator: torch.Generator) -> torch.Generator:
+    """A new generator on the same device in the same state."""
+    g = torch.Generator(device=generator.device)
+    g.set_state(generator.get_state())
+    return g

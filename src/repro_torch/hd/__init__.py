@@ -11,7 +11,7 @@
 Layout (as in ``repro.hd``): registry, resolver, config, result, methods,
 engine, search.
 """
-from repro_torch.hd.config import HDConfig
+from repro_torch.hd.config import BACKEND_FOR_SUBSET, HDConfig
 from repro_torch.hd.engine import HDEngine, set_distance
 from repro_torch.hd import methods as _methods  # noqa: F401  (populates the registry)
 from repro_torch.hd.registry import (
@@ -33,6 +33,7 @@ __all__ = [
     "search_batch",
     "HDEngine",
     "HDConfig",
+    "BACKEND_FOR_SUBSET",
     "HDResult",
     "HDMeta",
     "UnsupportedCombination",

@@ -1,10 +1,8 @@
 """Frozen front-door configuration (counterpart of ``repro/hd/config.py``).
 
-``HDConfig`` keeps the reference's fields of the served methods, less
-``interpret`` (there is no interpret mode for a CUDA kernel).  The knobs of
-methods not yet ported (sampling, adaptive) come with those methods;
-``repro_torch.interop`` drops them from a reference config dict.  Blocks
-left as ``None`` are resolved by ``repro_torch.hd.resolver``.
+``HDConfig`` keeps the reference's fields, less ``interpret`` (there is no
+interpret mode for a CUDA kernel).  Blocks left as ``None`` are resolved by
+``repro_torch.hd.resolver``.
 """
 from __future__ import annotations
 
@@ -12,14 +10,20 @@ import dataclasses
 
 from repro_torch.core.prohd import ProHDConfig
 
-__all__ = ["HDConfig"]
+__all__ = ["HDConfig", "BACKEND_FOR_SUBSET"]
 
 _SUBSET_BACKEND = {"dense": "dense", "tiled": "tiled", "fused_cuda": "cuda"}
+# Inverse map: ProHDConfig.subset_backend -> front-door backend name.
+BACKEND_FOR_SUBSET = {"dense": "dense", "tiled": "tiled", "cuda": "fused_cuda"}
 
 
 @dataclasses.dataclass(frozen=True)
 class HDConfig:
-    """Every front-door knob, with the paper's defaults."""
+    """Every front-door knob, with the paper's defaults.
+
+    Only the fields of the dispatched (variant, method) are read; the rest
+    are inert, so one config can drive a whole sweep.
+    """
 
     # -- shared / prohd -----------------------------------------------------
     alpha: float = 0.01              # selection / sampling fraction
@@ -31,6 +35,16 @@ class HDConfig:
 
     # -- partial ------------------------------------------------------------
     quantile: float = 0.95           # K-th-largest fraction for partial HD
+
+    # -- sampling -----------------------------------------------------------
+    sampler: str = "random"          # "random" | "systematic"
+
+    # -- adaptive -----------------------------------------------------------
+    budget: float = 0.1              # certified-gap budget
+    budget_relative: bool = True     # gap relative to the lower bound
+    adaptive_alpha0: float = 0.005
+    adaptive_max_alpha: float = 0.5
+    adaptive_max_steps: int = 8
 
     # -- machinery ----------------------------------------------------------
     block_a: int | None = None       # None → resolver

@@ -8,6 +8,8 @@ Counterpart of ``repro/hd/engine.py``::
     res = set_distance(a, b, method="prohd",
                        config=HDConfig(alpha=0.02))        # certified estimate
     res = set_distance(a, b, variant="chamfer", device="cpu")
+    res = set_distance(a, b, method="sampling",
+                       generator=torch.Generator("cuda").manual_seed(1))
 
 Device rule (``repro_torch.device``): numpy inputs go to ``cuda`` unless
 ``device=`` says otherwise; tensors stay where they are; with no GPU and
@@ -58,6 +60,7 @@ def set_distance(
     masks: tuple[Any, Any] | None = None,
     config: HDConfig | None = None,
     prune_projs: tuple[Any, Any] | None = None,
+    generator: torch.Generator | None = None,
     measure: bool = False,
     validate: bool = True,
     device: str | torch.device | None = None,
@@ -65,13 +68,16 @@ def set_distance(
     """A set distance between clouds ``a`` (n_a, D) and ``b`` (n_b, D).
 
     variant  — hausdorff | directed | partial | chamfer
-    method   — exact | prohd (sampling | adaptive: not ported yet)
+    method   — exact | prohd | sampling | adaptive
     backend  — dense | tiled | fused_cuda | auto (default)
     masks    — optional (valid_a, valid_b) row-validity masks; honoured by
-               the exact variants, rejected by prohd
+               the exact variants, rejected by prohd, sampling and adaptive
     config   — HDConfig (alpha, quantile, blocks, …)
     prune_projs — optional (proj_a, proj_b) projections enabling certified
                projection pruning on the exact scans (adds ``skip_fraction``)
+    generator — torch.Generator on the clouds' device for the randomised
+               methods (sampling; prohd's rsvd/subspace PCA): the
+               counterpart of the reference's ``key``
     measure  — synchronise the device and record wall time in ``meta.elapsed_s``
     validate — reject NaN/Inf on valid rows (default True)
     device   — where numpy inputs go (default ``cuda``); tensors keep their own
@@ -106,7 +112,7 @@ def set_distance(
         block_b = rbb if block_b is None else block_b
 
     ctx = DispatchContext(
-        valid_a=valid_a, valid_b=valid_b, cfg=cfg,
+        valid_a=valid_a, valid_b=valid_b, generator=generator, cfg=cfg,
         block_a=block_a, block_b=block_b, prune_projs=prune_projs,
     )
     t0 = time.perf_counter() if measure else 0.0
@@ -137,11 +143,11 @@ class HDEngine:
     backend: str = "auto"
     config: HDConfig = HDConfig()
 
-    def __call__(self, a, b, *, masks=None, prune_projs=None, measure: bool = False,
-                 validate: bool = True, device=None) -> HDResult:
+    def __call__(self, a, b, *, masks=None, prune_projs=None, generator=None,
+                 measure: bool = False, validate: bool = True, device=None) -> HDResult:
         return set_distance(
             a, b,
             variant=self.variant, method=self.method, backend=self.backend,
-            masks=masks, config=self.config, prune_projs=prune_projs,
+            masks=masks, config=self.config, prune_projs=prune_projs, generator=generator,
             measure=measure, validate=validate, device=device,
         )

@@ -2,19 +2,27 @@
 
 Counterpart of ``repro/hd/methods.py``.  Each adapter maps the uniform
 front-door contract onto the estimator it serves
-(``repro_torch.core.exact``, ``.prohd``, ``.variants``,
-``repro_torch.kernels.hausdorff.ops``)::
+(``repro_torch.core.exact``, ``.prohd``, ``.variants``, ``.sampling``,
+``.adaptive``, ``repro_torch.kernels.hausdorff.ops``)::
 
     impl(a, b, ctx: DispatchContext) -> (value, lower, upper, stats)
 
 The served matrix (every other cell raises ``UnsupportedCombination``;
-sampling, adaptive and distributed are not ported yet)::
+the reference's distributed cells are not ported yet)::
 
     (hausdorff, exact):    dense  tiled  fused_cuda
     (hausdorff, prohd):    dense  tiled  fused_cuda
+    (hausdorff, sampling):        tiled  fused_cuda
+    (hausdorff, adaptive):        tiled  fused_cuda
     (directed,  exact):    dense  tiled  fused_cuda
     (partial,   exact):    dense  tiled  fused_cuda
     (chamfer,   exact):    dense  tiled  fused_cuda
+
+The reference serves sampling and adaptive on ``tiled`` alone, its
+oracle being the one ProHD uses there.  On the card ProHD's oracle is
+kernel 1, so the port also serves both on ``fused_cuda``, where the
+subset scan (sampling) and every step's sweeps (adaptive) run kernel 1;
+the two backends differ only in that scan.
 """
 from __future__ import annotations
 
@@ -22,7 +30,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core import exact, tile_bounds, variants
+from repro_torch.core import adaptive as adaptive_mod
+from repro_torch.core import exact, sampling, tile_bounds, variants
 from repro_torch.core.prohd import prohd as _prohd_call
 from repro_torch.hd.config import HDConfig
 from repro_torch.hd.registry import register
@@ -38,6 +47,9 @@ class DispatchContext(NamedTuple):
 
     valid_a: torch.Tensor | None
     valid_b: torch.Tensor | None
+    # Randomised methods' source (sampling; prohd's rsvd/subspace PCA):
+    # the counterpart of the reference's ``key``.
+    generator: torch.Generator | None
     cfg: HDConfig
     block_a: int
     block_b: int
@@ -52,6 +64,12 @@ def _reject_masks(ctx: DispatchContext, method: str) -> None:
             f"method={method!r} does not accept masks=; it selects its own "
             "subsets from full clouds (pre-filter the inputs)"
         )
+
+
+def _require_generator(ctx: DispatchContext, method: str) -> torch.Generator:
+    if ctx.generator is None:
+        raise ValueError(f"method={method!r} is randomized and requires generator=")
+    return ctx.generator
 
 
 def _skip_stats(a, b, ctx: DispatchContext, *, directed: bool, block_a: int, block_b: int) -> dict:
@@ -197,7 +215,7 @@ def _register_prohd(backend: str) -> None:
     def impl(a, b, ctx, *, _backend=backend):
         _reject_masks(ctx, "prohd")
         pc = ctx.cfg.prohd_config(_backend)
-        est = _prohd_call(a, b, pc)
+        est = _prohd_call(a, b, pc, generator=ctx.generator)
         lower = est.hd_proj if pc.compute_projected else None
         upper = est.hd_proj + est.bound if (pc.compute_projected and pc.compute_bound) else None
         stats = {"estimate": est, "n_sel_a": est.n_sel_a, "n_sel_b": est.n_sel_b}
@@ -206,3 +224,50 @@ def _register_prohd(backend: str) -> None:
 
 for _b in _SCAN_BACKENDS:
     _register_prohd(_b)
+
+
+# ---------------------------------------------------------------------------
+# method=sampling / adaptive
+# ---------------------------------------------------------------------------
+
+
+def _subset_scan(backend: str, ctx: DispatchContext):
+    """The exact scan of the sampled subsets: kernel 1 on ``fused_cuda``,
+    the plain fused scan (the reference's block rule) on ``tiled``."""
+    if backend == "fused_cuda":
+        return hd_ops.hausdorff
+    return lambda x, y: exact.hausdorff_fused_tiled(x, y, block_a=ctx.block_b, block_b=ctx.block_b)
+
+
+def _register_sampling(backend: str) -> None:
+    @register("hausdorff", "sampling", backend)
+    def impl(a, b, ctx, *, _backend=backend):
+        _reject_masks(ctx, "sampling")
+        gen = _require_generator(ctx, "sampling")
+        if ctx.cfg.sampler not in sampling.SAMPLERS:
+            raise ValueError(f"unknown sampler {ctx.cfg.sampler!r}")
+        fn = sampling.random_sampling_hd if ctx.cfg.sampler == "random" else sampling.systematic_sampling_hd
+        hd, n = fn(gen, a, b, ctx.cfg.alpha, scan=_subset_scan(_backend, ctx))
+        # Sampled-vs-sampled HD can land on either side of the truth (the
+        # inner min inflates, the outer max deflates): no certified bounds.
+        return hd, None, None, {"n_sampled": n}
+
+
+def _register_adaptive(backend: str) -> None:
+    @register("hausdorff", "adaptive", backend)
+    def impl(a, b, ctx, *, _backend=backend):
+        _reject_masks(ctx, "adaptive")
+        cfg = ctx.cfg
+        res = adaptive_mod.prohd_with_budget(
+            a, b, budget=cfg.budget, relative=cfg.budget_relative, alpha0=cfg.adaptive_alpha0,
+            max_alpha=cfg.adaptive_max_alpha, max_steps=cfg.adaptive_max_steps,
+            generator=ctx.generator, backend=_backend,
+        )
+        est = res.estimate
+        stats = {"adaptive": res, "estimate": est, "n_sel_a": est.n_sel_a, "n_sel_b": est.n_sel_b}
+        return est.hd, est.hd_proj, est.hd_proj + est.bound, stats
+
+
+for _b in ("tiled", "fused_cuda"):
+    _register_sampling(_b)
+    _register_adaptive(_b)

@@ -6,8 +6,8 @@ testable anywhere.  The device kind is the input tensor's
 
 Where this differs from the reference:
 
-  * On ``cuda``, every single-device exact and prohd dispatch resolves to
-    ``fused_cuda`` at any size — the reference's small-input ``dense``
+  * On ``cuda``, every single-device dispatch (exact, prohd, sampling,
+    adaptive) resolves to ``fused_cuda`` at any size — the reference's small-input ``dense``
     escape is not taken, so the plain versions never carry the main path
     on the card.
   * On ``fused_cuda`` the blocks are the kernel's prune-table granularity
@@ -15,7 +15,8 @@ Where this differs from the reference:
     VMEM rule: they decide which tiles a prune table can gate, never
     which values come out.
   * On ``cpu`` the reference's rules hold: ``dense`` below the tile
-    threshold, the plain fused scan (``tiled``) above it, blocks
+    threshold, the plain fused scan (``tiled``) above it (sampling and
+    adaptive, which have no ``dense`` cell: ``tiled`` at any size), blocks
     4096/4096 at D ≤ 64 and 2048/2048 above.
   * The corpus search's bucket passes (:func:`resolve_masked_backend`) take
     the batched bucket kernel on ``cuda`` and its plain version on ``cpu``;

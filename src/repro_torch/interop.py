@@ -2,7 +2,8 @@
 
 ProHD has no weights: its state is the configuration and the data.  This
 module turns the fields of a reference ``HDConfig`` / ``ProHDConfig`` /
-``ServeConfig`` / ``EngineConfig`` / ``LMConfig``, passed as a plain dict
+``ServeConfig`` / ``EngineConfig`` / ``DriftMonitorConfig`` / ``LMConfig``,
+passed as a plain dict
 (``dataclasses.asdict``), and numpy arrays (clouds,
 masks, projections, directions, a corpus, an LM's parameters) into the
 port's objects, so a test can build both packages' inputs from one dict
@@ -18,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.core.prohd import ProHDConfig
+from repro_torch.core.streaming import DriftMonitorConfig
 from repro_torch.device import as_tensor
 from repro_torch.hd.config import HDConfig
 from repro_torch.index.store import SetStore
@@ -34,6 +36,7 @@ __all__ = [
     "prohd_config_from_dict",
     "serve_config_from_dict",
     "engine_config_from_dict",
+    "drift_config_from_dict",
     "cloud",
     "mask",
     "store_from_reference",
@@ -47,19 +50,10 @@ BACKEND_NAMES = {"fused_pallas": "fused_cuda", "batched_pallas": "batched_cuda",
                  "multiquery_pallas": "multiquery_cuda"}
 SUBSET_BACKEND_NAMES = {"pallas": "cuda"}
 # Reference fields with no counterpart in the port: ``interpret`` (no
-# interpret mode for a CUDA kernel), ``max_shape_classes`` (the service's
-# cap on jit-compiled shape classes; PyTorch compiles nothing per shape) and
-# the knobs of the sampling and adaptive methods, which are not ported yet.
-DROPPED_FIELDS = frozenset({
-    "interpret",
-    "max_shape_classes",
-    "sampler",
-    "budget",
-    "budget_relative",
-    "adaptive_alpha0",
-    "adaptive_max_alpha",
-    "adaptive_max_steps",
-})
+# interpret mode for a CUDA kernel) and ``max_shape_classes`` (the
+# service's cap on jit-compiled shape classes; PyTorch compiles nothing per
+# shape).
+DROPPED_FIELDS = frozenset({"interpret", "max_shape_classes"})
 
 
 def backend_name(ref_backend: str) -> str:
@@ -104,6 +98,18 @@ def engine_config_from_dict(d: dict[str, Any]) -> EngineConfig:
     if kw.get("masked_backend") is not None:
         kw["masked_backend"] = backend_name(kw["masked_backend"])
     return EngineConfig(**kw)
+
+
+def drift_config_from_dict(d: dict[str, Any]) -> DriftMonitorConfig:
+    """A port ``DriftMonitorConfig`` from a reference one's fields (its
+    nested ``prohd`` dict becomes a port ``ProHDConfig``; the threshold a
+    Python float)."""
+    kw = _fields(DriftMonitorConfig, d)
+    if kw.get("prohd") is not None:
+        kw["prohd"] = prohd_config_from_dict(dict(kw["prohd"]))
+    if "threshold" in kw:
+        kw["threshold"] = float(kw["threshold"])
+    return DriftMonitorConfig(**kw)
 
 
 def cloud(x: np.ndarray, device=None) -> torch.Tensor:

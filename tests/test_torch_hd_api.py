@@ -44,7 +44,10 @@ SERVED = {
     (v, "exact", b)
     for v in ("hausdorff", "directed", "partial", "chamfer")
     for b in ("dense", "tiled", "fused_cuda")
-} | {("hausdorff", "prohd", b) for b in ("dense", "tiled", "fused_cuda")}
+} | {("hausdorff", "prohd", b) for b in ("dense", "tiled", "fused_cuda")} | {
+    ("hausdorff", m, b) for m in ("sampling", "adaptive") for b in ("tiled", "fused_cuda")
+}
+RANDOMISED = {"sampling"}  # methods that need a generator
 CFG = dict(alpha=0.1, quantile=0.9, block_a=128, block_b=128)
 
 
@@ -63,6 +66,12 @@ def _scale(a, b):
 def test_served_matrix_is_exactly_the_slice():
     assert set(supported_combinations()) == SERVED
     assert "fused_cuda" in BACKENDS and "fused_pallas" not in BACKENDS
+    # the reference's matrix less its distributed cells, fused_pallas renamed,
+    # plus kernel 1 (fused_cuda) under sampling and adaptive
+    ref = {(v, m, interop.backend_name(b)) for v, m, b in jhd.supported_combinations()
+           if b != "distributed"}
+    extra = {("hausdorff", m, "fused_cuda") for m in ("sampling", "adaptive")}
+    assert set(supported_combinations()) == ref | extra
 
 
 @pytest.mark.parametrize("variant", VARIANTS)
@@ -71,8 +80,9 @@ def test_every_cell_computes_or_raises_unsupported(clouds, variant, method):
     a, b = clouds
     for backend in CONCRETE_BACKENDS:
         if (variant, method, backend) in SERVED:
+            gen = torch.Generator().manual_seed(0) if method in RANDOMISED else None
             res = set_distance(a, b, variant=variant, method=method, backend=backend,
-                               config=HDConfig(**CFG), device="cpu")
+                               config=HDConfig(**CFG), device="cpu", generator=gen)
             assert res.meta.backend == backend
             assert np.isfinite(float(res.value))
         else:
@@ -96,8 +106,8 @@ def test_auto_on_cuda_resolves_every_dispatch_to_the_kernel(n):
         assert resolve_backend(variant, method, n, n, 256, device_kind="cuda") == "fused_cuda"
     assert resolve_block_sizes(n, n, 256, device_kind="cuda", backend="fused_cuda") == (
         K.TABLE_BLOCK, K.TABLE_BLOCK)
-    with pytest.raises(UnsupportedCombination):
-        resolve_backend("hausdorff", "sampling", n, n, 256, device_kind="cuda")
+    for method in ("sampling", "adaptive"):
+        assert resolve_backend("hausdorff", method, n, n, 256, device_kind="cuda") == "fused_cuda"
 
 
 @pytest.mark.parametrize("variant", ["hausdorff", "directed", "partial", "chamfer"])
@@ -200,6 +210,22 @@ def test_interop_round_trips_a_reference_config():
     assert t.dtype == torch.float32 and t.tolist() == x.tolist()
     assert interop.mask(np.array([1, 0, 1]), "cpu").tolist() == [True, False, True]
     assert interop.mask(None, "cpu") is None
+
+
+def test_interop_carries_the_sampling_and_adaptive_fields():
+    assert interop.DROPPED_FIELDS == {"interpret", "max_shape_classes"}
+    ref_cfg = jhd.HDConfig(sampler="systematic", budget=0.25, budget_relative=False,
+                           adaptive_alpha0=0.02, adaptive_max_alpha=0.3, adaptive_max_steps=5)
+    port = interop.hd_config_from_dict(dataclasses.asdict(ref_cfg))
+    assert (port.sampler, port.budget, port.budget_relative) == ("systematic", 0.25, False)
+    assert (port.adaptive_alpha0, port.adaptive_max_alpha, port.adaptive_max_steps) == (0.02, 0.3, 5)
+    defaults = {k: v for k, v in dataclasses.asdict(jhd.HDConfig()).items()
+                if k not in interop.DROPPED_FIELDS}
+    assert dataclasses.asdict(HDConfig()) == defaults
+    from repro_torch.hd import BACKEND_FOR_SUBSET
+
+    assert BACKEND_FOR_SUBSET == {interop.SUBSET_BACKEND_NAMES.get(k, k): interop.backend_name(v)
+                                  for k, v in jhd.BACKEND_FOR_SUBSET.items()}
 
 
 def _imported_modules(path: Path):
