@@ -46,6 +46,20 @@ Phases (each asserts; any failure exits non-zero):
      alert before the shift, an alert after it at a threshold between
      the exact H before and after, the last interval bracketing the
      exact H; init, observe and check times;
+  6d. distributed: set_distance(backend="distributed") SPMD on a one-rank
+     NCCL process group (FileStore in a temporary directory) over a 1-D
+     DeviceMesh: ProHD on phase 5's 1,048,576² Random Clouds within
+     fp_value_margin of single-device ProHD (fused_cuda) on the same
+     clouds with equal selection counts, and the exact ring on phase 4's
+     clouds within fp_value_margin of their float64 H (computed on the
+     card), then again with 1,000 NaN rows padded into each cloud and
+     masked out (the same bits); medians of 3 after a warm-up; the group
+     is destroyed on success and on failure; then ProHD on phase 4's
+     clouds across two ranks of a gloo group on the one card (two
+     processes of this script, each with half the rows) within
+     fp_value_margin of single-device ProHD with equal selection counts
+     (gloo moves no CUDA tensor point to point, so the ring has no
+     two-rank run on one card);
   7. CUDA-event times (median of 5 after warm-up) of the kernel, its bound,
      its plain version and torch.cdist + amin as a yardstick, at 65,536²
      (bidirectional) and at ProHD's sweep shape (over 65,536-column
@@ -91,6 +105,13 @@ Kernel 3, search_batch and the serving layer:
      call held entry by entry against the plain version;
   10b. at phase 8's 2,048 sets, search_batch directed and anytime ε = 0,
      each bitwise equal to brute force;
+  10c. sharded: search(shards=1) on phase 8's store and search_batch
+     (shards=1) on phase 10's requests, ids, values and every stat but
+     ``shards`` equal to the unsharded calls, ids and values to brute
+     force, the cascade.shard_merge span present; times of one more
+     unsharded and sharded call of each (the unsharded ones uncounted);
+     kernel 2 launched by the sharded stage 1, kernel 1 by search and
+     kernel 3 by search_batch;
   11. served: a QueryEngine over a ProHDService around phase 8's store
      answers phase 10's 16 requests in one flush, bitwise equal to phase
      10; ProHDService.submit serves 8 Random-Cloud pairs at 16,384 ×
@@ -127,11 +148,12 @@ the seed):
      64/8 of 128, causal, with its bound, its plain version and
      scaled_dot_product_attention as a yardstick.
 
-Each main path (phases 4-6: set_distance; 6b and 6c, each its own; phase
-8: search; phases 10 and 10b: search_batch; phase 11: the served paths;
-phase 14: each prefill_step and the decode loop) runs with the kernels' launch counters set to 0 just
-before it and read just after; launches made only to compare a kernel with
-its plain version are taken back out.
+Each main path (phases 4-6: set_distance; 6b, 6c and 6d, each its own;
+phase 8: search; phases 10 and 10b: search_batch; 10c: shards=1; phase
+11: the served paths; phase 14: each prefill_step and the decode loop)
+runs with the kernels' launch counters set to 0 just before it and read
+just after; launches made only to compare a kernel with its plain version
+are taken back out.
 Prints JSON lines; the last line is {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
 """
@@ -193,6 +215,10 @@ DRIFT_SHIFT_AT = 16
 DRIFT_CHECK_EVERY = 4
 DRIFT_SHIFT = 4.0
 DRIFT_THRESHOLD = 40.0
+N_RING_PAD = 1_000
+# Phase 6d's multi-rank run: ProHD on phase 4's clouds over a gloo group of
+# GLOO_RANKS processes on the one card (NCCL takes one rank per card).
+GLOO_RANKS = 2
 # The retrieval corpus: the repo's own corpus settings (benchmarks/tables.py,
 # clustered_sets with sizes 48..256 step 8, 32 clusters, spread 10, σ 0.5)
 # at the paper's D = 256; the query is 128 points around set 0's centroid.
@@ -1261,7 +1287,7 @@ def phase_search_batch(seed: int, corpus: dict) -> dict:
         "ids": [r.ids.tolist() for r in res[:N_UNIQUE]],
     }
     emit({"phase": "search_batch", **out})
-    return {"results": res, "queries": queries, "ks": ks, "keep": keep,
+    return {"results": res, "queries": queries, "ks": ks, "owners": owners, "bfs": bfs, "keep": keep,
             "held": held_summary("search_batch", held_rows)}
 
 
@@ -1775,6 +1801,277 @@ def phase_drift(seed: int) -> dict:
     return out
 
 
+def h64_cuda(a, b) -> float:
+    """float64 H(A, B) on the card: the GEMM form of d² in float64, over
+    row chunks of at most 4 GiB of d²."""
+    import torch
+
+    a64, b64 = a.double(), b.double()
+    b2 = (b64 * b64).sum(dim=1)
+    row_max = torch.full((), -torch.inf, dtype=torch.float64, device=a.device)
+    col_min = torch.full((b.shape[0],), torch.inf, dtype=torch.float64, device=a.device)
+    chunk = max(1, (4 << 30) // (8 * b.shape[0]))
+    for i in range(0, a.shape[0], chunk):
+        x = a64[i:i + chunk]
+        d2 = x @ b64.T
+        d2.mul_(-2.0).add_(b2[None, :]).add_((x * x).sum(dim=1)[:, None]).clamp_(min=0.0)
+        row_max = torch.maximum(row_max, d2.amin(dim=1).max())
+        col_min = torch.minimum(col_min, d2.amin(dim=0))
+        del d2
+    return float(torch.sqrt(torch.maximum(row_max, col_min.max())))
+
+
+def phase_distributed(seed: int, a, b, h_exact: float) -> dict:
+    """The distributed backend through the front door, SPMD on a one-rank
+    NCCL group over a DeviceMesh: distributed ProHD on phase 5's Random
+    Clouds against single-device ProHD (fused_cuda) on the same clouds, and
+    the exact ring on phase 4's clouds against their float64 H, unpadded
+    and with N_RING_PAD NaN rows padded into each cloud and masked out."""
+    import datetime
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core.fp_margin import fp_value_margin
+    from repro_torch.data.pointclouds import make_generator, random_clouds
+    from repro_torch.hd import HDConfig, set_distance
+
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    out = {"phase": "distributed", "process_group": backend, "ranks": 1}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, store=dist.FileStore(f"{tmp}/store", 1), rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=600),
+                                device_id=torch.device(DEVICE, 0) if DEVICE == "cuda" else None)
+        try:
+            mesh = init_device_mesh(DEVICE, (1,), mesh_dim_names=("data",))
+
+            def on_mesh(x, y, **kw):
+                return set_distance(x, y, backend="distributed", mesh=mesh, measure=True, **kw)
+
+            # ProHD at phase 5's 1M² Random Clouds, against fused_cuda ProHD.
+            cfg = HDConfig(alpha=0.01, inner="full")
+            a5, b5 = random_clouds(make_generator(seed + 2, DEVICE), N_PROHD, N_PROHD, D)
+            scale5 = scale_of(a5, b5)
+            with uncounted():
+                single = set_distance(a5, b5, method="prohd", config=cfg, measure=True)
+            assert single.meta.backend == "fused_cuda", single.meta
+            res, times = timed_calls(lambda: on_mesh(a5, b5, method="prohd", config=cfg))
+            assert res.meta.backend == "distributed", res.meta
+            assert res.lower is None and res.upper is None  # no certificate on this path
+            v, vs = float(res.value), float(single.value)
+            margin = float(fp_value_margin(D, scale5, vs))
+            assert abs(v - vs) <= margin, (v, vs, margin)
+            n_sel = (int(res.stats["n_sel_a"]), int(res.stats["n_sel_b"]))
+            n_sel_single = (int(single.stats["n_sel_a"]), int(single.stats["n_sel_b"]))
+            assert n_sel == n_sel_single, (n_sel, n_sel_single)
+            assert all(x == v for x in times["repeat_values"]), times
+            out["prohd"] = {"n": N_PROHD, "d": D, "alpha": 0.01, "value": v, "single_device_value": vs,
+                            "equal_bitwise": v == vs, "margin": margin, "n_sel": n_sel, **times,
+                            "single_device_elapsed_s": single.meta.elapsed_s}
+            del a5, b5
+            torch.cuda.empty_cache()
+
+            # The exact ring on phase 4's clouds, against their float64 H.
+            t0 = time.perf_counter()
+            h64 = h64_cuda(a, b)
+            h64_s = time.perf_counter() - t0
+            margin = float(fp_value_margin(D, scale_of(a, b), h64))
+            res, times = timed_calls(lambda: on_mesh(a, b))
+            h = float(res.value)
+            assert res.meta.backend == "distributed", res.meta
+            assert abs(h - h64) <= margin, (h, h64, margin)
+            assert all(x == h for x in times["repeat_values"]), times
+            pad = torch.full((N_RING_PAD, D), torch.nan, device=a.device)
+            valid = torch.arange(a.shape[0] + N_RING_PAD, device=a.device) < a.shape[0]
+            padded = on_mesh(torch.cat([a, pad]), torch.cat([b, pad]), masks=(valid, valid))
+            hp = float(padded.value)
+            assert hp == h, (hp, h)  # padding rows masked out change no bit
+            out["ring"] = {"n": a.shape[0], "d": D, "value": h, "float64": h64, "margin": margin,
+                           "fused_cuda_value": h_exact, "equals_fused_cuda_bitwise": h == h_exact,
+                           **times, "padded_rows": N_RING_PAD, "padded_value": hp,
+                           "padded_elapsed_s": padded.meta.elapsed_s, "float64_s": h64_s}
+        finally:
+            dist.destroy_process_group()
+    out["gloo_prohd"] = gloo_prohd(seed, a, b)
+    emit(out)
+    return out
+
+
+def gloo_prohd(seed: int, a, b) -> dict:
+    """ProHD on phase 4's clouds across GLOO_RANKS ranks of one gloo group
+    on the one card: as many processes of this script (``--gloo-rank``),
+    each with its block of rows, against single-device ProHD (fused_cuda)
+    on the whole clouds: the same value on every rank, within
+    fp_value_margin of it, equal selection counts.  Gloo carries CUDA
+    tensors through all_reduce, all_gather and broadcast (ProHD's
+    collectives) but not point to point, so the exact ring has no
+    multi-rank run on one card.  The ranks' launches are their own
+    processes' and are not counted here."""
+    import tempfile
+
+    from repro_torch.core.fp_margin import fp_value_margin
+    from repro_torch.hd import HDConfig, set_distance
+
+    with uncounted():
+        single = set_distance(a, b, method="prohd", config=HDConfig(alpha=0.01, inner="full"))
+    assert single.meta.backend == "fused_cuda", single.meta
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--seed", str(seed), "--gloo-root", tmp, "--gloo-rank"]
+        procs = [subprocess.Popen(cmd + [str(r)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for r in range(GLOO_RANKS)]
+        deadline = time.monotonic() + 600
+        try:
+            outs = [p.communicate(timeout=max(1.0, deadline - time.monotonic())) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+    ranks = []
+    for r, (p, (stdout, stderr)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, (r, p.returncode, stderr[-3000:])
+        ranks.append(json.loads(stdout.strip().splitlines()[-1]))
+    checksum = float(a.double().sum() + b.double().sum())
+    vs = float(single.value)
+    n_sel = [int(single.stats["n_sel_a"]), int(single.stats["n_sel_b"])]
+    margin = float(fp_value_margin(D, scale_of(a, b), vs))
+    for r in ranks:
+        assert r["checksum"] == checksum, (r["rank"], r["checksum"], checksum)  # phase 4's clouds
+        assert r["value"] == ranks[0]["value"] and all(x == r["value"] for x in r["repeat_values"]), ranks
+        assert abs(r["value"] - vs) <= margin, (r["value"], vs, margin)
+        assert r["n_sel"] == n_sel, (r["n_sel"], n_sel)
+    return {"process_group": "gloo", "ranks": GLOO_RANKS, "n": a.shape[0], "d": D, "alpha": 0.01,
+            "value": ranks[0]["value"], "single_device_value": vs, "equal_bitwise": ranks[0]["value"] == vs,
+            "margin": margin, "n_sel": n_sel, "by_rank": ranks}
+
+
+def gloo_prohd_rank(seed: int, rank: int, root: str) -> dict:
+    """One rank of :func:`gloo_prohd`: phase 4's clouds made again from the
+    seed, this rank's block of rows, distributed ProHD through the front
+    door (median of 3 after a warm-up)."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.data.pointclouds import make_generator, random_clouds
+    from repro_torch.hd import HDConfig, set_distance
+
+    dist.init_process_group("gloo", store=dist.FileStore(f"{root}/store", GLOO_RANKS), rank=rank,
+                            world_size=GLOO_RANKS, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = init_device_mesh(DEVICE, (GLOO_RANKS,), mesh_dim_names=("data",))
+        a, b = random_clouds(make_generator(seed + 1, DEVICE), N_EXACT, N_EXACT, D)
+        rows = slice(rank * N_EXACT // GLOO_RANKS, (rank + 1) * N_EXACT // GLOO_RANKS)
+        cfg = HDConfig(alpha=0.01, inner="full")
+        res, times = timed_calls(lambda: set_distance(a[rows], b[rows], method="prohd", backend="distributed",
+                                                      mesh=mesh, config=cfg, measure=True))
+        assert res.meta.backend == "distributed", res.meta
+        return {"rank": rank, "value": float(res.value), "n_sel": [int(res.stats["n_sel_a"]),
+                                                                   int(res.stats["n_sel_b"])],
+                "checksum": float(a.double().sum() + b.double().sum()), **times}
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def stage1_scan_launches():
+    """Inside the block, count kernel 2's launches made by stage-1 calls of
+    its wrapper (the per-lane operand forms of ``SCAN_FORMS``) into the
+    yielded dict's ``"stage1"``; every call still goes to the wrapper."""
+    from repro_torch.kernels.hausdorff import batched as KB
+
+    wrapper, seen = KB.batched_min_sqdists, {"stage1": 0}
+
+    def noting(q, slab, **kw):
+        before = KB.batched_minscan.launches
+        out = wrapper(q, slab, **kw)
+        if SCAN_FORMS[(q.ndim, slab.ndim)].startswith("stage 1"):
+            seen["stage1"] += KB.batched_minscan.launches - before
+        return out
+
+    KB.batched_min_sqdists = noting
+    try:
+        yield seen
+    finally:
+        KB.batched_min_sqdists = wrapper
+
+
+def phase_sharded(corpus: dict, batch: dict) -> dict:
+    """search(shards=1) on phase 8's store and search_batch(shards=1) on
+    phase 10's requests: ids, values and every stat but ``shards`` equal to
+    the unsharded calls, ids and values to brute force; then one more
+    unsharded and one more sharded call of each, for times.  The unsharded
+    calls run uncounted, so the path's launches are the sharded calls'
+    alone: kernels 1 and 2 from search (kernel 2 from its sharded stage 1
+    among them) and kernel 3 from search_batch."""
+    import numpy as np
+
+    from repro_torch.hd import search, search_batch
+    from repro_torch.obs import trace
+
+    big = corpus["big"]
+    store, q, one, bf = big["store"], big["q"], big["res"], big["bf"]
+
+    def same_stats(sharded, plain, label):
+        stats = dict(sharded.stats)
+        assert stats.pop("shards") == 1, (label, sharded.stats)
+        assert stats == plain.stats, (label, stats, plain.stats)
+
+    start = counts()
+    with stage1_scan_launches() as seen:
+        with trace.capture() as events:
+            res = search(q, store, K_TOP, shards=1, on_fault="raise", measure=True)
+            spans = {e["name"]: e for e in events() if e["type"] == "span"}
+        check_search(res, bf, store, "search shards=1 vs brute force")
+        check_search(res, one, store, "search shards=1 vs unsharded")
+        same_stats(res, one, "search shards=1")
+        assert spans["cascade.shard_merge"]["attrs"]["shards"] == 1, spans.keys()
+        assert spans["cascade.stage0"]["attrs"]["shards"] == 1
+        with uncounted():
+            again = search(q, store, K_TOP, on_fault="raise", measure=True)
+        res2 = search(q, store, K_TOP, shards=1, on_fault="raise", measure=True)
+    for r in (again, res2):
+        check_search(r, bf, store, "search, timing run")
+    search_launches = {k: v - start[k] for k, v in counts().items()}
+    assert search_launches["fused_minscan"] > 0 and seen["stage1"] > 0, (search_launches, seen)
+    assert search_launches["batched_minscan"] >= seen["stage1"], (search_launches, seen)
+    unsharded_s = [corpus["runs"]["corpus"]["cascade_s"], corpus["runs"]["corpus"]["cascade_warm_s"],
+                   again.meta.elapsed_s]
+    out = {"phase": "sharded", "shards": 1, "search": {
+        "n_sets": store.n_sets, "k": K_TOP, "ids": res.ids.tolist(),
+        "sharded_s": [res.meta.elapsed_s, res2.meta.elapsed_s], "unsharded_s": unsharded_s,
+        "stage_s": {k: spans[f"cascade.{k}"]["dur_s"] for k in ("stage0", "stage1", "shard_merge", "stage2a",
+                                                                  "stage2b") if f"cascade.{k}" in spans},
+        "merge_pruned": spans["cascade.shard_merge"]["attrs"]["pruned"],
+        "launches": search_launches, "stage1_kernel2_launches": seen["stage1"]}}
+
+    queries, ks, owners, bfs = batch["queries"], batch["ks"], batch["owners"], batch["bfs"]
+    plain = batch["results"]
+    runs = []
+    start = counts()
+    for label, shards in (("sharded", 1), ("unsharded", None), ("sharded", 1)):
+        with uncounted() if shards is None else contextlib.nullcontext():
+            rs = search_batch(queries, store, ks, shards=shards, on_fault="raise", measure=True)
+        check_batch(rs, ks, owners, bfs, f"search_batch shards={shards}")
+        for r, p in zip(rs, plain):
+            assert np.array_equal(r.ids, p.ids) and np.array_equal(r.values, p.values), label
+            if shards:
+                same_stats(r, p, "search_batch shards=1")
+        runs.append((label, rs[0].meta.elapsed_s))
+    batch_launches = {k: v - start[k] for k, v in counts().items()}
+    assert batch_launches["multiquery_minscan"] > 0, batch_launches
+    out["search_batch"] = {
+        "requests": len(queries),
+        "sharded_s": [t for lbl, t in runs if lbl == "sharded"],
+        "unsharded_s": [plain[0].meta.elapsed_s] + [t for lbl, t in runs if lbl == "unsharded"],
+        "launches": batch_launches}
+    emit(out)
+    return out
+
+
 def scan_bound(peak: float, n_a: int, n_b: int, directed: bool) -> tuple[float, str]:
     """Kernel 1's least time (ms) on these shapes: 2·n_a·n_b·D FLOPs at the
     FFMA peak, against a, b, a2, b2 read once and min_a (and min_b) written
@@ -2215,6 +2512,8 @@ def kernel_entry(name, route, source, replaces, launches, max_err, rows, held=()
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--gloo-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--gloo-root", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -2222,6 +2521,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    if args.gloo_rank is not None:  # one rank of phase 6d's gloo group
+        print(json.dumps(gloo_prohd_rank(args.seed, args.gloo_rank, args.gloo_root)), flush=True)
+        return 0
     from repro_torch.kernels.hausdorff import batched as KB
     from repro_torch.kernels.hausdorff import hausdorff as K
 
@@ -2260,6 +2562,16 @@ def main() -> int:
         assert sum(side_launches[path].values()) == side_launches[path]["fused_minscan"], side_launches[path]
         emit({"phase": "main_path", "path": path, "launches": side_launches[path],
               "wall_s": time.perf_counter() - t0})
+
+    # Main path 1d: the distributed backend, one NCCL rank (ProHD, the ring).
+    zero_counts()
+    t0 = time.perf_counter()
+    phase_distributed(args.seed, a, b, h)
+    dist_launches = counts()
+    assert dist_launches["fused_minscan"] > 0, dist_launches
+    assert sum(dist_launches.values()) == dist_launches["fused_minscan"], dist_launches
+    emit({"phase": "main_path", "path": "distributed", "launches": dist_launches,
+          "wall_s": time.perf_counter() - t0})
     del a, b
     torch.cuda.empty_cache()
 
@@ -2282,6 +2594,16 @@ def main() -> int:
     batch_launches = counts()
     assert batch_launches["multiquery_minscan"] > 0, batch_launches
     emit({"phase": "main_path", "path": "search_batch", "launches": batch_launches,
+          "wall_s": time.perf_counter() - t0})
+
+    # Main path 3b: search and search_batch with shards=1 over the same store.
+    zero_counts()
+    t0 = time.perf_counter()
+    phase_sharded(corpus, batch)
+    shard_launches = counts()
+    assert all(shard_launches[k] > 0 for k in ("fused_minscan", "batched_minscan", "multiquery_minscan")), \
+        shard_launches
+    emit({"phase": "main_path", "path": "sharded", "launches": shard_launches,
           "wall_s": time.perf_counter() - t0})
 
     # Main path 4: the serving layer (QueryEngine search, ProHDService pairwise).
@@ -2311,11 +2633,11 @@ def main() -> int:
     rows4 = phase_times_flash(args.seed, env)
 
     def total(name):
-        return sum(c[name] for c in (search_launches, batch_launches, serve_launches))
+        return sum(c[name] for c in (search_launches, batch_launches, shard_launches, serve_launches))
 
     emit({"kernels": [
         kernel_entry("fused_minscan", "cuda", KERNEL_SOURCE, TPU_KERNEL,
-                     pair_launches + total("fused_minscan")
+                     pair_launches + total("fused_minscan") + dist_launches["fused_minscan"]
                      + sum(c["fused_minscan"] for c in side_launches.values()),
                      max(max_err, exact_err), rows),
         kernel_entry("batched_minscan", "cuda", KERNEL2_SOURCE, TPU_KERNEL2,

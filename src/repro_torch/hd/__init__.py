@@ -8,6 +8,9 @@
     res = search(query, store, k=10)               # corpus top-k (repro_torch.index)
     out = search_batch(queries, store, k=10)       # one result per query
 
+    res = set_distance(a_rows, b_rows, backend="distributed", mesh=mesh)
+                                                   # SPMD over a DeviceMesh
+
 Layout (as in ``repro.hd``): registry, resolver, config, result, methods,
 engine, search.
 """

@@ -10,11 +10,14 @@ Counterpart of ``repro/hd/engine.py``::
     res = set_distance(a, b, variant="chamfer", device="cpu")
     res = set_distance(a, b, method="sampling",
                        generator=torch.Generator("cuda").manual_seed(1))
+    res = set_distance(a_rows, b_rows, backend="distributed",
+                       mesh=mesh)                  # SPMD: this rank's rows
 
 Device rule (``repro_torch.device``): numpy inputs go to ``cuda`` unless
 ``device=`` says otherwise; tensors stay where they are; with no GPU and
 no CPU request the call raises.  ``backend="auto"`` and the block sizes
-are resolved once per call from the shapes and the device kind.
+are resolved once per call from the shapes, the device kind and the
+mesh's batch group.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.core import distributed as dist_mod
 from repro_torch.device import as_mask, as_tensor, strict_fp32
 from repro_torch.hd import registry, resolver
 from repro_torch.hd.config import HDConfig
@@ -61,6 +65,8 @@ def set_distance(
     config: HDConfig | None = None,
     prune_projs: tuple[Any, Any] | None = None,
     generator: torch.Generator | None = None,
+    mesh: Any | None = None,
+    batch_axes: tuple[str, ...] = ("data",),
     measure: bool = False,
     validate: bool = True,
     device: str | torch.device | None = None,
@@ -69,16 +75,25 @@ def set_distance(
 
     variant  — hausdorff | directed | partial | chamfer
     method   — exact | prohd | sampling | adaptive
-    backend  — dense | tiled | fused_cuda | auto (default)
+    backend  — dense | tiled | fused_cuda | distributed | auto (default)
     masks    — optional (valid_a, valid_b) row-validity masks; honoured by
-               the exact variants, rejected by prohd, sampling and adaptive
+               the exact variants and by distributed ProHD, rejected by
+               single-device prohd, sampling and adaptive
     config   — HDConfig (alpha, quantile, blocks, …)
     prune_projs — optional (proj_a, proj_b) projections enabling certified
                projection pruning on the exact scans (adds ``skip_fraction``)
     generator — torch.Generator on the clouds' device for the randomised
                methods (sampling; prohd's rsvd/subspace PCA): the
                counterpart of the reference's ``key``
+    mesh     — a ``torch.distributed`` DeviceMesh: required by the
+               distributed backend, which ``auto`` picks when the batch
+               group has more than one rank.  Under it every rank of the
+               group calls ``set_distance`` with its own rows (equal row
+               counts on every rank, padding masked out) and gets the
+               replicated result
+    batch_axes — the mesh dims whose ranks row-shard the clouds
     measure  — synchronise the device and record wall time in ``meta.elapsed_s``
+               (distributed: the local device, then the batch group)
     validate — reject NaN/Inf on valid rows (default True)
     device   — where numpy inputs go (default ``cuda``); tensors keep their own
 
@@ -102,7 +117,10 @@ def set_distance(
     kind = a.device.type
 
     if backend == "auto":
-        backend = resolver.resolve_backend(variant, method, n_a, n_b, d, device_kind=kind)
+        n_devices = dist_mod.batch_size(mesh, batch_axes) if mesh is not None else 1
+        backend = resolver.resolve_backend(
+            variant, method, n_a, n_b, d, device_kind=kind, n_devices=n_devices,
+        )
     impl = registry.resolve(variant, method, backend)
 
     block_a, block_b = cfg.block_a, cfg.block_b
@@ -114,6 +132,7 @@ def set_distance(
     ctx = DispatchContext(
         valid_a=valid_a, valid_b=valid_b, generator=generator, cfg=cfg,
         block_a=block_a, block_b=block_b, prune_projs=prune_projs,
+        mesh=mesh, batch_axes=tuple(batch_axes),
     )
     t0 = time.perf_counter() if measure else 0.0
     value, lower, upper, stats = impl(a, b, ctx)
@@ -121,6 +140,8 @@ def set_distance(
     if measure:
         if kind == "cuda":
             torch.cuda.synchronize(a.device)
+        if backend == "distributed":
+            torch.distributed.barrier(group=dist_mod.batch_group(mesh, batch_axes))
         elapsed = time.perf_counter() - t0
 
     meta = HDMeta(
@@ -143,11 +164,12 @@ class HDEngine:
     backend: str = "auto"
     config: HDConfig = HDConfig()
 
-    def __call__(self, a, b, *, masks=None, prune_projs=None, generator=None,
-                 measure: bool = False, validate: bool = True, device=None) -> HDResult:
+    def __call__(self, a, b, *, masks=None, prune_projs=None, generator=None, mesh=None,
+                 batch_axes: tuple[str, ...] = ("data",), measure: bool = False,
+                 validate: bool = True, device=None) -> HDResult:
         return set_distance(
             a, b,
             variant=self.variant, method=self.method, backend=self.backend,
             masks=masks, config=self.config, prune_projs=prune_projs, generator=generator,
-            measure=measure, validate=validate, device=device,
+            mesh=mesh, batch_axes=batch_axes, measure=measure, validate=validate, device=device,
         )

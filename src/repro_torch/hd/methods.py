@@ -3,15 +3,14 @@
 Counterpart of ``repro/hd/methods.py``.  Each adapter maps the uniform
 front-door contract onto the estimator it serves
 (``repro_torch.core.exact``, ``.prohd``, ``.variants``, ``.sampling``,
-``.adaptive``, ``repro_torch.kernels.hausdorff.ops``)::
+``.adaptive``, ``.distributed``, ``repro_torch.kernels.hausdorff.ops``)::
 
     impl(a, b, ctx: DispatchContext) -> (value, lower, upper, stats)
 
-The served matrix (every other cell raises ``UnsupportedCombination``;
-the reference's distributed cells are not ported yet)::
+The served matrix (every other cell raises ``UnsupportedCombination``)::
 
-    (hausdorff, exact):    dense  tiled  fused_cuda
-    (hausdorff, prohd):    dense  tiled  fused_cuda
+    (hausdorff, exact):    dense  tiled  fused_cuda  distributed
+    (hausdorff, prohd):    dense  tiled  fused_cuda  distributed
     (hausdorff, sampling):        tiled  fused_cuda
     (hausdorff, adaptive):        tiled  fused_cuda
     (directed,  exact):    dense  tiled  fused_cuda
@@ -23,14 +22,19 @@ oracle being the one ProHD uses there.  On the card ProHD's oracle is
 kernel 1, so the port also serves both on ``fused_cuda``, where the
 subset scan (sampling) and every step's sweeps (adaptive) run kernel 1;
 the two backends differ only in that scan.
+
+``distributed`` is SPMD over ``torch.distributed``: every rank of the
+mesh's batch group calls the front door with its own rows and ``mesh=``
+(``core.distributed``); its scans are kernel 1's.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 
 from repro_torch.core import adaptive as adaptive_mod
+from repro_torch.core import distributed as dist_mod
 from repro_torch.core import exact, sampling, tile_bounds, variants
 from repro_torch.core.prohd import prohd as _prohd_call
 from repro_torch.hd.config import HDConfig
@@ -56,6 +60,10 @@ class DispatchContext(NamedTuple):
     # (proj_a, proj_b) per-row projections onto shared unit directions
     # (column 0 primary): certified projection pruning + skip_fraction.
     prune_projs: tuple[torch.Tensor, torch.Tensor] | None
+    # The DeviceMesh (backend="distributed") and the dims whose ranks
+    # row-shard the clouds.
+    mesh: Any | None = None
+    batch_axes: tuple[str, ...] = ("data",)
 
 
 def _reject_masks(ctx: DispatchContext, method: str) -> None:
@@ -154,6 +162,14 @@ def _directed_exact_cuda(a, b, ctx):
     return v, v, v, stats
 
 
+@register("hausdorff", "exact", "distributed")
+def _hausdorff_exact_distributed(a, b, ctx):
+    mesh = _require_mesh(ctx, "exact")
+    A, B = _sharded_pair(a, b, ctx)
+    v = dist_mod.distributed_exact_hd(mesh, A, B, batch_axes=ctx.batch_axes)
+    return v, v, v, {}
+
+
 # ---------------------------------------------------------------------------
 # variant=partial / chamfer, method=exact: reductions of one fused scan
 # ---------------------------------------------------------------------------
@@ -226,6 +242,17 @@ for _b in _SCAN_BACKENDS:
     _register_prohd(_b)
 
 
+@register("hausdorff", "prohd", "distributed")
+def _prohd_distributed(a, b, ctx):
+    mesh = _require_mesh(ctx, "prohd")
+    A, B = _sharded_pair(a, b, ctx)
+    hd, n_sel_a, n_sel_b = dist_mod.distributed_prohd(
+        mesh, A, B, ctx.cfg.prohd_config("fused_cuda"), batch_axes=ctx.batch_axes,
+    )
+    # The distributed path does not compute the projected certificate.
+    return hd, None, None, {"n_sel_a": n_sel_a, "n_sel_b": n_sel_b}
+
+
 # ---------------------------------------------------------------------------
 # method=sampling / adaptive
 # ---------------------------------------------------------------------------
@@ -271,3 +298,24 @@ def _register_adaptive(backend: str) -> None:
 for _b in ("tiled", "fused_cuda"):
     _register_sampling(_b)
     _register_adaptive(_b)
+
+
+# ---------------------------------------------------------------------------
+# distributed plumbing
+# ---------------------------------------------------------------------------
+
+
+def _require_mesh(ctx: DispatchContext, method: str):
+    if ctx.mesh is None:
+        raise ValueError(
+            f"backend='distributed' (method={method!r}) requires mesh=; pass the "
+            "torch.distributed DeviceMesh whose batch axes row-shard the clouds"
+        )
+    return ctx.mesh
+
+
+def _sharded_pair(a, b, ctx: DispatchContext):
+    """This rank's rows of both clouds with their masks (all True if none)."""
+    va = ctx.valid_a if ctx.valid_a is not None else torch.ones((a.shape[0],), dtype=torch.bool, device=a.device)
+    vb = ctx.valid_b if ctx.valid_b is not None else torch.ones((b.shape[0],), dtype=torch.bool, device=b.device)
+    return dist_mod.ShardedCloud(a, va), dist_mod.ShardedCloud(b, vb)

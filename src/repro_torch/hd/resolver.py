@@ -6,6 +6,10 @@ testable anywhere.  The device kind is the input tensor's
 
 Where this differs from the reference:
 
+  * ``distributed`` is picked when the mesh's BATCH group (the ranks of
+    ``batch_axes``) has more than one rank; the reference counts every
+    device of the mesh.
+
   * On ``cuda``, every single-device dispatch (exact, prohd, sampling,
     adaptive) resolves to ``fused_cuda`` at any size — the reference's small-input ``dense``
     escape is not taken, so the plain versions never carry the main path
@@ -58,8 +62,10 @@ def resolve_backend(
     d: int,
     *,
     device_kind: str = "cpu",
+    n_devices: int = 1,
 ) -> str:
-    """A concrete, registered backend for ``backend="auto"``."""
+    """A concrete, registered backend for ``backend="auto"``; ``n_devices``
+    is the size of the mesh's batch group (1 without a mesh)."""
     supported = registry.supported_backends(variant, method)
     if not supported:
         raise registry.UnsupportedCombination(variant, method, "auto")
@@ -70,6 +76,8 @@ def resolve_backend(
                 return p
         return supported[0]
 
+    if n_devices > 1 and "distributed" in supported:
+        return "distributed"
     if device_kind == "cuda":
         return pick("fused_cuda", "tiled", "dense")
     if min(n_a, n_b) < TILE_THRESHOLD:

@@ -12,8 +12,7 @@ is identical to brute force::
     store.add_many(sets)
     res = search(query, store, k=10)      # res.ids, res.values, res.stats
     out = search_batch(queries, store, 10)  # one SearchResult per query
-
-Not ported yet: ``shards=``.
+    res = search(query, store, k=10, shards=2)  # stages 0/1 over 2 devices
 """
 from repro_torch.index.cascade import (
     ON_FAULT_MODES,
@@ -32,6 +31,7 @@ from repro_torch.index.cascade import (
     search,
 )
 from repro_torch.index.multiquery import search_batch
+from repro_torch.index.sharded import ShardContext, make_shard_context
 from repro_torch.index.store import (
     SNAPSHOT_FORMAT,
     PackedBucket,
@@ -54,6 +54,8 @@ __all__ = [
     "SNAPSHOT_FORMAT",
     "search",
     "search_batch",
+    "make_shard_context",
+    "ShardContext",
     "SearchResult",
     "SEARCH_VARIANTS",
     "SEARCH_METHODS",

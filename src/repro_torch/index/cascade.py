@@ -1,8 +1,8 @@
 """Certified bound-cascade top-k set-distance search over a SetStore.
 
-Counterpart of ``repro/index/cascade.py`` (without ``shards=``, which
-comes with a later slice).  Three stages, each a strictly tighter and
-more expensive certified interval around every candidate's true distance:
+Counterpart of ``repro/index/cascade.py``.  Three stages, each a strictly
+tighter and more expensive certified interval around every candidate's
+true distance:
 
   stage 0 — summary bounds over the whole corpus in one shot, on the
       store's device: projection-interval gaps (lower) and the triangle
@@ -26,7 +26,9 @@ k-th smallest certified upper bound; stage 2 always drains, so the
 returned top-k — ranked by (value, id) — is identical to brute force
 (``method="exact"``).  ``stage2="sequential"`` skips 2a; ``mode="anytime"``
 stops at the first ε-stable rung.  Deadlines and absorbed faults return
-the best certified state as a degraded result.
+the best certified state as a degraded result.  ``shards=P`` splits stages
+0 and 1 across P devices (``repro_torch.index.sharded``) and merges their
+certificates before stage 2; the top-k is the same bits.
 
 The interval state (lb, ub, values) is host-side float64 numpy, as in the
 reference; stage 0's bounds and margins are computed in fp32 on the device
@@ -34,6 +36,7 @@ as the reference computes them under jit.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any
@@ -47,6 +50,7 @@ from repro_torch.device import as_tensor
 from repro_torch.hd import resolver
 from repro_torch.hd.config import HDConfig
 from repro_torch.hd.result import HDMeta
+from repro_torch.index import sharded as _sharded
 from repro_torch.index.store import SetStore, SetSummary, bucket_capacity
 from repro_torch.obs import trace as _obs
 from repro_torch.obs.metrics import record_stats as _record_stats
@@ -384,7 +388,15 @@ def _search_impl(
                the exact path)
     epsilon  — anytime: absolute distance tolerance, ε ≥ 0
     budget   — anytime: cap on raw refines (None = unbounded)
-    shards   — not in this slice of the port: raises ValueError
+    shards   — corpus-parallel stages 0/1 over the first ``shards``
+               visible devices of the store's kind
+               (``repro_torch.index.sharded``): summaries split row-wise,
+               stage-1 lanes dealt in contiguous blocks, then a cross-shard
+               certified top-k merge (span ``cascade.shard_merge``) before
+               the unchanged stage 2.  The top-k is bit for bit the
+               unsharded one.  None (default) runs unsharded; 1 runs the
+               sharded code on one device.  Not with mode="anytime" or
+               method="exact" (ValueError).
 
     Tombstoned sets are certified out (their intervals pinned to +inf) and
     ``k_eff = min(k, store.n_live)``.
@@ -399,12 +411,6 @@ def _search_impl(
         raise ValueError(f"unknown on_fault mode {on_fault!r}; expected one of {ON_FAULT_MODES}")
     if mode not in SEARCH_MODES:
         raise ValueError(f"unknown search mode {mode!r}; expected one of {SEARCH_MODES}")
-    if shards is not None:
-        raise ValueError(
-            "shards= (corpus-parallel stages 0/1 over several devices) is not "
-            "ported yet; it comes with the sharded-index slice of the port "
-            "(index/sharded.py) — drop shards="
-        )
     epsilon = float(epsilon)
     if not np.isfinite(epsilon) or epsilon < 0.0:
         raise ValueError(f"epsilon must be a finite float >= 0, got {epsilon}")
@@ -435,6 +441,18 @@ def _search_impl(
             "cannot search a SetStore with no live sets (every set was "
             "deleted); add sets or restore a snapshot first"
         )
+    if shards is not None:
+        if mode == "anytime":
+            raise ValueError(
+                "shards= is not supported with mode='anytime' (the anytime "
+                "ladder does not run through the sharded path) — drop one of "
+                "the two"
+            )
+        if method == "exact":
+            raise ValueError(
+                "shards= parallelises the cascade's stage 0/1; method='exact' "
+                "(brute force) has no such stages — drop one of the two"
+            )
     cfg = config if config is not None else HDConfig()
     q = as_tensor(query, store.device).float()
     if q.ndim != 2 or q.shape[1] != store.dim:
@@ -474,6 +492,12 @@ def _search_impl(
     dead = ~live if has_dead else None
     directed = variant == "directed"
     device_kind = q.device.type
+    # Stages 0 and 1 and the stage-1 merge always run through the sharded
+    # path; unsharded is its one-device case.
+    if shards is None:
+        shard_ctx = _sharded.ShardContext([q.device])
+    else:
+        shard_ctx = _sharded.make_shard_context(shards, device_kind)
     mb = masked_backend or resolver.resolve_masked_backend(device_kind)
     available = masked_backend_ladder(mb, device_kind)
     backend_fallbacks: list[str] = []
@@ -523,6 +547,8 @@ def _search_impl(
     stage_reached = "stage0"
     fault: BaseException | None = None
     stats: dict[str, Any] = {"candidates_scanned": n, "n_live": n_live, "k": k_eff}
+    if shards is not None:
+        stats["shards"] = shard_ctx.n_shards
 
     def checkpoint() -> None:
         if deadline.expired():
@@ -539,17 +565,14 @@ def _search_impl(
         return bucket.points.index_select(0, take), bucket.valid.index_select(0, take), int(take.shape[0])
 
     def tighten_stage1(bucket, rows) -> None:
-        """Stage-1 certificates of one bucket's gathered rows, folded in."""
-        pts, val, batch = gather(bucket, rows)
-        cert = _with_backend(lambda be: _stage1_batch(
-            q, pts, val, alpha=cfg.alpha, m=m, directed=directed, backend=be,
+        """Stage-1 certificates of one bucket's frontier rows, folded in."""
+        hd1, lo1, up1, batch = _with_backend(lambda be: _sharded.stage1_certs(
+            shard_ctx, q, bucket, rows, alpha=cfg.alpha, m=m, directed=directed, backend=be,
         ))
         _obs.event("cascade.stage1_pass", capacity=bucket.capacity, batch=batch, lanes=int(rows.size))
-        hd1 = cert.hd.double().cpu().numpy()[: rows.size]
-        lo1 = np.maximum(hd1, cert.lower.double().cpu().numpy()[: rows.size])
+        lo1 = np.maximum(hd1, lo1)
         sids = bucket.set_ids[rows]
-        lb1, ub1 = certified_margins(lo1, cert.upper.double().cpu().numpy()[: rows.size],
-                                     scale[sids], store.dim)
+        lb1, ub1 = certified_margins(lo1, up1, scale[sids], store.dim)
         lb[sids] = np.maximum(lb[sids], lb1)
         ub[sids] = np.minimum(ub[sids], ub1)
         if anytime:
@@ -618,8 +641,11 @@ def _search_impl(
             _faults.fire(_POINT_STAGE0)
             qsum = store.summarize(q)
             sums = store.summaries()
-            lb_t, ub_t = interval_bounds(qsum, sums, directed=directed)
-            scale_t = bound_scale(qsum, sums)
+            # Corpus rows split across the devices; the bound math is
+            # row-local, so the concatenated bits are the unsharded ones.
+            lb_t, ub_t, scale_t = _sharded.stage0_bounds(shard_ctx, qsum, sums, directed=directed)
+            if shards is not None:
+                _sp0.set(shards=shard_ctx.n_shards)
             lb_t, ub_t = certified_margins(lb_t, ub_t, scale_t, store.dim)
             scale = scale_t.double().cpu().numpy()
             lb = lb_t.double().cpu().numpy()
@@ -742,9 +768,14 @@ def _search_impl(
                         checkpoint()
                         tighten_stage1(bucket, rows)
                         stage_reached = "stage1"
-                    tau = _kth_smallest(ub, k_eff)
-                    still = alive & (lb <= tau)
-                    stats["stage1_pruned"] = int(alive.sum() - still.sum())
+                    # The certified top-k merge over the whole corpus; a
+                    # sharded call traces it as the cross-shard merge.
+                    with (_obs.span("cascade.shard_merge", shards=shard_ctx.n_shards)
+                          if shards is not None else contextlib.nullcontext()) as _spm:
+                        tau, still = _sharded.merge_topk(lb, ub, alive, k_eff)
+                        stats["stage1_pruned"] = int(alive.sum() - still.sum())
+                        if _spm is not None:
+                            _spm.set(pruned=stats["stage1_pruned"])
                     alive = still
                     _sp1.set(pruned=stats["stage1_pruned"])
 

@@ -1,11 +1,10 @@
 """Batched multi-query certified cascade: ``search_batch``.
 
-Counterpart of ``repro/index/multiquery.py`` (without ``shards=``, which
-comes with a later slice).  One call answers a whole BATCH of queries
-against one :class:`SetStore` with every per-query guarantee of
-``repro_torch.index.cascade.search`` intact — each query's top-k is bit for
-bit its own brute-force search — while sharing the work the single-query
-loop repeats per query:
+Counterpart of ``repro/index/multiquery.py``.  One call answers a whole
+BATCH of queries against one :class:`SetStore` with every per-query
+guarantee of ``repro_torch.index.cascade.search`` intact — each query's
+top-k is bit for bit its own brute-force search — while sharing the work
+the single-query loop repeats per query:
 
   stage 0 — one (Q × corpus) summary-bound pass: the per-query summaries
       are stacked with a broadcast axis through the same
@@ -29,7 +28,9 @@ loop repeats per query:
 The batch path skips the single-query cascade's stage 1 (masked ProHD per
 lane): the multi-query stage 2a tightens every frontier pair of a bucket in
 one gated pass, and pruning soundness only ever relied on the bounds being
-certified.  Per-query stats record ``stage1_pruned = 0``.
+certified.  Per-query stats record ``stage1_pruned = 0``.  ``shards=P``
+splits stage 0's corpus axis across P devices
+(``repro_torch.index.sharded``); stage 2a (kernel 3) is unchanged.
 
 ``deadline_s`` budgets the whole call (stage 0 always runs); on expiry or
 an absorbed fault every query not yet completed returns its best certified
@@ -61,13 +62,12 @@ from repro_torch.index.cascade import (
     _pow2_take,
     _rank,
     anytime_frontier,
-    bound_scale,
     certified_margins,
     certified_recall,
     fp_value_margin,
-    interval_bounds,
     masked_backend_ladder,
 )
+from repro_torch.index import sharded as _sharded
 from repro_torch.index.store import SetStore, SetSummary
 from repro_torch.obs import trace as _obs
 from repro_torch.obs.metrics import record_stats as _record_stats
@@ -167,7 +167,11 @@ def _search_batch_impl(
                UNION of every owner's ε-frontier and each owner's top-k is
                re-derived at its own k.  ε = 0 with no budget IS the exact
                batch path.
-    shards   — not in this slice of the port: raises ValueError
+    shards   — stage 0's (Q × corpus) pass split across the first
+               ``shards`` visible devices of the store's kind (the only
+               corpus-granularity pass of the batch path; stage 2a is
+               unchanged); bit for bit the unsharded results.  Not with
+               mode="anytime" (ValueError).
 
     Tombstoned sets follow the single-query contract (intervals pinned to
     +inf, rank depth ``min(k_i, n_live)``).  Returns one
@@ -187,12 +191,6 @@ def _search_batch_impl(
             f"unknown masked backend {masked_backend!r}; expected one of "
             f"{tuple(sorted(masked.EXACT_MASKED_BACKENDS))}"
         )
-    if shards is not None:
-        raise ValueError(
-            "shards= (corpus-parallel stage 0 over several devices) is not "
-            "ported yet; it comes with the sharded-index slice of the port "
-            "(index/sharded.py) — drop shards="
-        )
     if store.n_sets == 0:
         raise ValueError("cannot search an empty SetStore")
     live = store.live_mask()
@@ -201,6 +199,12 @@ def _search_batch_impl(
         raise ValueError(
             "cannot search a SetStore with no live sets (every set was "
             "deleted); add sets or restore a snapshot first"
+        )
+    if shards is not None and mode == "anytime":
+        raise ValueError(
+            "shards= is not supported with mode='anytime' (the anytime "
+            "ladder does not run through the sharded path) — drop one of "
+            "the two"
         )
     if mode not in SEARCH_MODES:
         raise ValueError(f"unknown search mode {mode!r}; expected one of {SEARCH_MODES}")
@@ -253,6 +257,12 @@ def _search_batch_impl(
     dead = ~live if has_dead else None
     directed = variant == "directed"
     device_kind = dev.type
+    # Stage 0 always runs through the sharded path; unsharded is its
+    # one-device case.
+    if shards is None:
+        shard_ctx = _sharded.ShardContext([dev])
+    else:
+        shard_ctx = _sharded.make_shard_context(shards, device_kind)
 
     # -- dedup: duplicate queries collapse to one cascade -------------------
     uniq_of: dict[tuple[int, bytes], int] = {}
@@ -364,8 +374,12 @@ def _search_batch_impl(
             _faults.fire(_cascade._POINT_STAGE0)
             qsums = _stack_query_summaries([store.summarize(uniq[ui]) for ui in act])
             sums = store.summaries()
-            lb_t, ub_t = interval_bounds(qsums, sums, directed=directed)
-            scale = bound_scale(qsums, sums).double().cpu().numpy()
+            # Corpus axis split across the devices; per-(query, set) bound
+            # math is row-local, so the bits are the unsharded ones.
+            lb_t, ub_t, scale_t = _sharded.stage0_bounds(shard_ctx, qsums, sums, directed=directed)
+            if shards is not None:
+                _sp0.set(shards=shard_ctx.n_shards)
+            scale = scale_t.double().cpu().numpy()
             lb, ub = certified_margins(lb_t.double().cpu().numpy(), ub_t.double().cpu().numpy(), scale, store.dim)
             if has_dead:
                 # Stale summary rows at tombstoned ids: pin to +inf.
@@ -575,6 +589,8 @@ def _search_batch_impl(
         "refine_backend": refine_backend,
         "mode": mode,
     }
+    if shards is not None:
+        base_stats["shards"] = shard_ctx.n_shards
     if backend_fallbacks:
         base_stats["backend_fallbacks"] = list(backend_fallbacks)
 

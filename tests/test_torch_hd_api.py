@@ -46,7 +46,7 @@ SERVED = {
     for b in ("dense", "tiled", "fused_cuda")
 } | {("hausdorff", "prohd", b) for b in ("dense", "tiled", "fused_cuda")} | {
     ("hausdorff", m, b) for m in ("sampling", "adaptive") for b in ("tiled", "fused_cuda")
-}
+} | {("hausdorff", m, "distributed") for m in ("exact", "prohd")}
 RANDOMISED = {"sampling"}  # methods that need a generator
 CFG = dict(alpha=0.1, quantile=0.9, block_a=128, block_b=128)
 
@@ -66,10 +66,9 @@ def _scale(a, b):
 def test_served_matrix_is_exactly_the_slice():
     assert set(supported_combinations()) == SERVED
     assert "fused_cuda" in BACKENDS and "fused_pallas" not in BACKENDS
-    # the reference's matrix less its distributed cells, fused_pallas renamed,
-    # plus kernel 1 (fused_cuda) under sampling and adaptive
-    ref = {(v, m, interop.backend_name(b)) for v, m, b in jhd.supported_combinations()
-           if b != "distributed"}
+    # the reference's matrix, fused_pallas renamed, plus kernel 1
+    # (fused_cuda) under sampling and adaptive
+    ref = {(v, m, interop.backend_name(b)) for v, m, b in jhd.supported_combinations()}
     extra = {("hausdorff", m, "fused_cuda") for m in ("sampling", "adaptive")}
     assert set(supported_combinations()) == ref | extra
 
@@ -79,7 +78,12 @@ def test_served_matrix_is_exactly_the_slice():
 def test_every_cell_computes_or_raises_unsupported(clouds, variant, method):
     a, b = clouds
     for backend in CONCRETE_BACKENDS:
-        if (variant, method, backend) in SERVED:
+        if backend == "distributed" and (variant, method, backend) in SERVED:
+            # served SPMD over a DeviceMesh (tests/test_torch_distributed.py);
+            # without one it refuses, as the reference does
+            with pytest.raises(ValueError, match="requires mesh="):
+                set_distance(a, b, variant=variant, method=method, backend=backend, device="cpu")
+        elif (variant, method, backend) in SERVED:
             gen = torch.Generator().manual_seed(0) if method in RANDOMISED else None
             res = set_distance(a, b, variant=variant, method=method, backend=backend,
                                config=HDConfig(**CFG), device="cpu", generator=gen)
