@@ -12,7 +12,9 @@ Phases (each asserts; any failure exits non-zero):
      folders under src/repro_torch/kernels/ into build/kernels/, one nvcc
      per source, started together; ptxas's registers and spills per
      kernel, and no spill in any of the four instances (resident or
-     streamed tile × directed or bidirectional) of kernels 1, 2 and 3;
+     streamed tile × directed or bidirectional) of kernels 1, 2 and 3 or
+     in any head-dim instance of kernel 4 (bf16: 16, 64, 80, 128, 192,
+     256; fp32: 16 to 256);
   3. kernel vs plain version on the same CUDA tensors (fp32 and bf16, masks,
      empty sides, pruning, a grid whose CTAs walk several tile pairs), per
      min-d² entry within 2·(D+2)·eps32·scale², HD within fp_value_margin
@@ -66,6 +68,13 @@ Phases (each asserts; any failure exits non-zero):
      chunks of b) in both instances, with the kernel's outputs held entry
      by entry against the plain version's at every timed shape and
      instance (and the masked, directed wrapper call at the sweep shape).
+  7b. the paper's exact baselines: hausdorff_twosweep_tiled at 65,536² ×
+     256 (two launches of kernel 1's directed instance, counted on their
+     own) against the fused bidirectional call, both values within
+     fp_value_margin of the float64 H, CUDA-event times of both; the EBHD
+     early break (hausdorff_earlybreak) on Random Clouds at 4,096² × 256 on
+     the card and on the host's CPU, each within fp_value_margin of the
+     float64 H, host-clock times.
 Kernel 2 and the corpus search:
   3b. the batched bucket scan against its plain version on CUDA tensors
      (shared and per-set queries, a shared slab, ragged caps, an
@@ -119,6 +128,14 @@ Kernel 3, search_batch and the serving layer:
      set_distance; then the same pairs flushed once more (uncounted, the
      same answers) with every kernel-2 wrapper call held entry by entry
      against the plain version at the served shapes;
+  11b. obs: a JSONL capture (obs.capture(jsonl=...)) around one more
+     search on phase 8's store, validated by obs.validate_events (one rid,
+     no errors), its obs.report.stage_table printed; then a search on a
+     512-set store of the same settings under torch.profiler with the
+     profiler bridge on (capture(record_function=True)): the trace holds
+     the cascade.stage0/1/2a/2b ranges, and every kernel-2 and kernel-1
+     launch of the search lies inside one (kernel 2 in stage 1, kernel 1
+     in 2b);
   12. CUDA-event times of kernel 3 at Q = 16 on the full cap-256 bucket
      (beside 16 launches of kernel 2 on the same work) and on search_batch's
      largest stage-2a pass, with its bound, its plain version (at Q = 2 on
@@ -131,9 +148,13 @@ the seed):
      and not, GQA groups 1, 2, 4, 8, hd 64, 80 and 128, Sq and Sk on either
      side of a 128-key tile's edge and of the diagonal tile, Sk < 128, one
      query row, TinyLlama's, StableLM-3B's and DeepSeek-67B's heads at
-     4,096), and against the plain version at kv chunks 64 and 512, per
-     entry within the bound that flash_error derives (scripts/
-     flash_planted_faults.py shows faulty kernels failing it);
+     4,096; every other head dim kind: 16, 192 and 256 (instances), 3, 40
+     and 96 (zero-padded to the next instance); sliding windows inside one
+     key tile, across several and past Sk; query offsets of a continued
+     prefill, past the keys, and with rows that see no key at all), and
+     against the plain version at kv chunks 64 and 512, per entry within
+     the bound that flash_error derives (scripts/flash_planted_faults.py
+     shows faulty kernels failing it);
   14. prefill_step at full width on 1 × 512 tokens (against the same model
      in float64 through the plain functions), 8 × 4,096 and 1 × 32,768
      tokens, each launching kernel 4 once per layer, every launch on the
@@ -141,16 +162,25 @@ the seed):
      8 × 4,096 prefill with every kernel-4 call held entry by entry against
      the plain version; serve_step at batch 32 with a 32,768-slot cache:
      a 64-token prompt fed one token at a time (its last logits against
-     prefill_step's on the same prompt), then 32 greedy tokens;
-  15. CUDA-event times of kernel 4 (bf16 route) at TinyLlama's (8, 4,096)
-     and (1, 32,768), 32 query heads over 4 kv heads of 64, and at
-     (1, 8,192) with StableLM-3B's 32/32 heads of 80 and DeepSeek-67B's
-     64/8 of 128, causal, with its bound, its plain version and
-     scaled_dot_product_attention as a yardstick.
+     prefill_step's on the same prompt), then 32 greedy tokens; a 1 ×
+     32,768 prefill with a 4,096-token sliding window (22 launches on the
+     bf16 route); then smoke_lm_config(TinyLlama) (2 layers, 4/2 heads of
+     16, fp32) at 2 × 512 through the fp32 route (2 launches), its logits
+     within 1e-4 relative L2 of the same model in float64;
+  15. CUDA-event times of kernel 4 at TinyLlama's (8, 4,096) and
+     (1, 32,768), 32 query heads over 4 kv heads of 64, at (1, 8,192) with
+     StableLM-3B's 32/32 heads of 80 and DeepSeek-67B's 64/8 of 128, causal
+     bf16, then TinyLlama's (1, 32,768) with a 4,096 window (against the
+     causal call) and the smoke configs' heads (8, 4,096, 4/2 of 16, fp32),
+     with its bound, its plain version and scaled_dot_product_attention as
+     a yardstick (flash backend, causal; for the two new shapes the
+     memory-efficient backend with an explicit (S, S) mask, and for the
+     causal fp32 one also that backend's own causal mask, is_causal).
 
 Each main path (phases 4-6: set_distance; 6b, 6c and 6d, each its own;
-phase 8: search; phases 10 and 10b: search_batch; 10c: shards=1; phase
-11: the served paths; phase 14: each prefill_step and the decode loop)
+phase 7b's two-sweep call; phase 8: search; phases 10 and 10b:
+search_batch; 10c: shards=1; phase 11: the served paths; phase 14: each
+prefill_step and the decode loop)
 runs with the kernels' launch counters set to 0 just before it and read
 just after; launches made only to compare a kernel with its plain version
 are taken back out.
@@ -245,10 +275,15 @@ DECODE_BATCH = 32
 DECODE_CACHE = 32_768
 DECODE_PROMPT = 64
 DECODE_NEW = 32
-# Phase 13's cases, (B, Sq, Sk, H, KV, hd, dtype, causal): groups 1, 2, 4 and
-# 8, hd 64, 80 and 128, ragged Sq and Sk, and the models' heads at 4,096.
-# bf16 goes through the tensor-core kernel (128-row query blocks, 128-key
-# tiles, 64 at hd 128), fp32 through the CUDA-core one (64 and 64).
+# Phase 13's cases, (B, Sq, Sk, H, KV, hd, dtype, causal[, q_offset, window]):
+# groups 1, 2, 4 and 8, the instance head dims, ragged Sq and Sk, and the
+# models' heads at 4,096; then head dims that are no instance (3, 40, 96,
+# padded to the next) and the new instances (16, 192, 256) in both dtypes;
+# sliding windows (inside one key tile, across several, past Sk) and query
+# offsets (a continued prefill with Sk > Sq, rows past the keys, and rows
+# that see no key at all).  bf16 goes through the tensor-core kernel
+# (128-row query blocks, 64 at hd > 128; 128-key tiles, 64 at hd > 80),
+# fp32 through the CUDA-core one (64 and 64).
 FLASH_CASES = (
     (2, 128, 128, 4, 4, 64, "float32", True),
     (2, 128, 128, 4, 4, 64, "float32", False),
@@ -273,14 +308,55 @@ FLASH_CASES = (
     (1, 4096, 4096, 32, 4, 64, "float32", True),
     (1, 4096, 4096, 64, 8, 128, "bfloat16", True),  # DeepSeek-67B's heads
     (1, 4096, 4096, 32, 32, 80, "bfloat16", True),  # StableLM-3B's heads
+    # Every head dim: the smoke configs' 16, padded ones, the one-consumer instances.
+    (2, 300, 300, 4, 2, 16, "bfloat16", True),
+    (2, 300, 300, 4, 2, 16, "float32", True),
+    (1, 333, 333, 8, 4, 40, "bfloat16", True),
+    (1, 333, 333, 8, 4, 40, "float32", False),
+    (1, 200, 192, 16, 2, 96, "bfloat16", False),
+    (1, 200, 192, 16, 2, 96, "float32", True),
+    (1, 300, 300, 8, 2, 256, "bfloat16", True),
+    (1, 300, 300, 8, 2, 256, "float32", True),
+    (1, 129, 255, 4, 4, 256, "bfloat16", False),
+    (1, 257, 257, 4, 1, 192, "bfloat16", True),
+    (1, 100, 100, 2, 1, 3, "bfloat16", True),
+    # Sliding windows: inside one key tile, across several, past Sk.
+    (1, 1024, 1024, 8, 2, 64, "bfloat16", True, 0, 50),
+    (1, 1024, 1024, 8, 2, 64, "float32", True, 0, 50),
+    (1, 1024, 1024, 8, 2, 128, "bfloat16", True, 0, 300),
+    (1, 1024, 1024, 8, 2, 64, "float32", True, 0, 300),
+    (1, 1000, 1000, 8, 2, 80, "bfloat16", True, 0, 5000),
+    # Query offsets: a continued prefill (the last Sq of Sk positions), with
+    # and without a window; rows past the keys; rows that see no key.
+    (1, 300, 1000, 8, 2, 64, "bfloat16", True, 700, None),
+    (1, 300, 1000, 8, 2, 64, "float32", True, 700, None),
+    (1, 300, 1024, 8, 2, 64, "bfloat16", True, 724, 200),
+    (1, 300, 1024, 4, 2, 256, "bfloat16", True, 724, 100),
+    (1, 200, 1000, 8, 2, 64, "bfloat16", True, 1000, None),
+    (1, 200, 1000, 8, 4, 64, "float32", True, 1500, None),
+    (1, 200, 1000, 8, 2, 64, "bfloat16", True, 1100, 150),
+    (1, 200, 1000, 8, 2, 64, "float32", True, 1100, 150),
 )
-# Phase 15's timed shapes (B, S, H, KV, hd), causal bf16: TinyLlama's first.
+# Phase 15's timed shapes (B, S, H, KV, hd, dtype, window), causal:
+# TinyLlama's first, then StableLM-3B's and DeepSeek-67B's heads, then
+# TinyLlama at 32,768 with a 4,096 window and the smoke configs' heads (4/2
+# of 16, fp32 as the smoke configs run).
 FLASH_TIMES = (
-    (8, 4_096, 32, 4, 64),
-    (1, 32_768, 32, 4, 64),
-    (1, 8_192, 32, 32, 80),
-    (1, 8_192, 64, 8, 128),
+    (8, 4_096, 32, 4, 64, "bfloat16", None),
+    (1, 32_768, 32, 4, 64, "bfloat16", None),
+    (1, 8_192, 32, 32, 80, "bfloat16", None),
+    (1, 8_192, 64, 8, 128, "bfloat16", None),
+    (1, 32_768, 32, 4, 64, "bfloat16", 4_096),
+    (8, 4_096, 4, 2, 16, "float32", None),
 )
+# Phase 14's windowed prefill: TinyLlama with this sliding window at 1 × 32,768.
+LM_WINDOW = 4_096
+# Phase 7b: the paper's exact baselines.  Two-sweep against the fused call at
+# phase 7's 65,536² (N_VARIANT); the early break on Random Clouds at
+# N_EARLYBREAK² on the CPU and on the card.
+N_EARLYBREAK = 4_096
+# Phase 11b: the profiled search runs on a corpus of this many sets.
+N_OBS_SETS = 512
 
 
 def emit(obj) -> None:
@@ -441,8 +517,8 @@ def phase_env():
 
 def phase_build():
     """Build the four kernels from the checkout, one nvcc each, started
-    together; every instance of kernels 1, 2 and 3 must build without
-    spills."""
+    together; every instance of kernels 1, 2 and 3, and every head-dim
+    instance of kernel 4's two routes, must build without spills."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import _build
@@ -459,17 +535,25 @@ def phase_build():
     instances = {}
     entry = {"fused_minscan": "fused_minscan_kernel", "batched_minscan": "bucket_minscan_kernel",
              "multiquery_minscan": "bucket_minscan_kernel"}
+    text_of = {}
     for name in launchers():
         logs = sorted(_build.BUILD_DIR.glob(f"{name}-*.log"), key=lambda f: f.stat().st_mtime)
-        text = logs[-1].read_text() if logs else ""
+        text = text_of[name] = logs[-1].read_text() if logs else ""
         ptxas[name] = [ln.strip() for ln in text.splitlines() if "registers" in ln or "spill" in ln]
         if name in entry:
             instances[name] = {k: v for k, v in _build.ptxas_report(text).items() if entry[name] in k}
-    # four instances each: {resident, streamed} × {directed, bidirectional}
-    for name, inst in instances.items():
-        assert len(inst) == 4 and all("registers" in v for v in inst.values()), (name, inst)
-        assert all(v.get("spill_bytes") == 0 for v in inst.values()), (name, inst)
+    # kernel 4: one instance per head dim of F.INSTANCES, on each route
+    report = _build.ptxas_report(text_of["flash_fwd"])
+    for route, entry4 in (("wgmma", "flash_fwd_sm90_kernel"), ("ffma", "flash_fwd_kernel")):
+        instances[f"flash_fwd/{route}"] = {k: v for k, v in report.items() if entry4 in k}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas, "instances": instances})
+    # four instances each of kernels 1-3: {resident, streamed} × {directed, bidirectional};
+    # kernel 4: one per head dim, twice on the bf16 route (with and without an offset or window)
+    for name, inst in instances.items():
+        route = name.split("/")[-1]
+        n = len(F.INSTANCES[route]) * (2 if route == "wgmma" else 1) if name.startswith("flash_fwd/") else 4
+        assert len(inst) == n and all("registers" in v for v in inst.values()), (name, inst)
+        assert all(v.get("spill_bytes") == 0 for v in inst.values()), (name, inst)
 
 
 def phase_kernel_vs_plain(seed: int) -> float:
@@ -2181,12 +2265,170 @@ def phase_times(seed: int, env: dict) -> list[dict]:
     return rows
 
 
+@contextlib.contextmanager
+def directed_flags(flags: list):
+    """Inside the block, every kernel-1 launch appends its ``directed`` flag."""
+    from repro_torch.kernels.hausdorff import hausdorff as K
+
+    launch = K.fused_minscan
+
+    def spy(*args, **kw):
+        flags.append(kw.get("directed", False))
+        launch(*args, **kw)  # the launcher counts on its module's name: the spy
+
+    spy.launches = launch.launches
+    K.fused_minscan = spy
+    try:
+        yield
+    finally:
+        K.fused_minscan = launch
+        launch.launches = spy.launches
+
+
+def phase_baselines(seed: int, env: dict) -> dict:
+    """The paper's exact baselines: the two-sweep HD (two directed kernel-1
+    launches) against the fused bidirectional call at 65,536² × 256, and the
+    EBHD early break on Random Clouds at N_EARLYBREAK² × 256 on the CPU and
+    on the card, each against the float64 H."""
+    import torch
+
+    from repro_torch.core import exact
+    from repro_torch.core.fp_margin import fp_value_margin
+    from repro_torch.data.pointclouds import make_generator, random_clouds
+    from repro_torch.kernels.hausdorff import hausdorff as K
+    from repro_torch.kernels.hausdorff import ops
+
+    a, b = random_clouds(make_generator(seed + 7, DEVICE), N_VARIANT, N_VARIANT, D)
+    scale = scale_of(a, b)
+    flags = []
+    zero_counts()
+    with directed_flags(flags):
+        two = float(ops.hausdorff_twosweep_tiled(a, b))
+    torch.cuda.synchronize()
+    launches = counts()
+    assert launches == {**dict.fromkeys(launches, 0), "fused_minscan": 2}, launches
+    assert flags == [True, True], flags  # kernel 1's directed instance, once per sweep
+    with uncounted():
+        fused = float(ops.hausdorff(a, b))
+        h64 = h64_cuda(a, b)
+        margin = float(fp_value_margin(D, scale, h64))
+        assert abs(two - fused) <= margin and abs(two - h64) <= margin, (two, fused, h64, margin)
+        twosweep_ms = cuda_ms(lambda: ops.hausdorff_twosweep_tiled(a, b))
+        fused_ms = cuda_ms(lambda: ops.hausdorff(a, b))
+    sweeps = {"shape": [N_VARIANT, N_VARIANT, D], "twosweep": two, "fused": fused, "float64": h64,
+              "margin": margin, "launches": launches["fused_minscan"], "directed": flags,
+              "twosweep_ms": twosweep_ms, "fused_ms": fused_ms, "ratio": twosweep_ms / fused_ms,
+              "bound_ms_each_sweep": scan_bound(env["fp32_peak_tflops"] * 1e12, N_VARIANT, N_VARIANT, True)[0]}
+    del a, b
+    torch.cuda.empty_cache()
+
+    a, b = random_clouds(make_generator(seed + 8, DEVICE), N_EARLYBREAK, N_EARLYBREAK, D)
+    scale = scale_of(a, b)
+    h64 = h64_cuda(a, b)
+    margin = float(fp_value_margin(D, scale, h64))
+    early = {"shape": [N_EARLYBREAK, N_EARLYBREAK, D], "float64": h64, "margin": margin}
+    with uncounted():
+        for where, x, y in (("cuda", a, b), ("cpu", a.cpu(), b.cpu())):
+            before = sum(counts().values())
+            t0 = time.perf_counter()
+            val = float(exact.hausdorff_earlybreak(x, y))
+            if where == "cuda":
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            assert sum(counts().values()) == before  # plain tensor code, no kernel of the port
+            assert abs(val - h64) <= margin, (where, val, h64, margin)
+            early[where] = {"value": val, "wall_s": dt}
+        t0 = time.perf_counter()
+        exact_val = float(ops.hausdorff(a, b))
+        torch.cuda.synchronize()
+        early["fused_kernel_wall_s"] = time.perf_counter() - t0
+        early["fused_kernel_value"] = exact_val
+    del a, b
+    torch.cuda.empty_cache()
+    out = {"twosweep": sweeps, "earlybreak": early}
+    emit({"phase": "baselines", **out})
+    return out
+
+
+def phase_obs(seed: int, corpus: dict) -> dict:
+    """The rest of obs on the card: a JSONL capture around one search on
+    phase 8's store, validated and rendered with the port's export and
+    report; then one torch.profiler run, with the profiler bridge on, of a
+    search on a store of N_OBS_SETS sets (stage 1's batched eigh launches
+    hundreds of kernels a candidate; at 512 sets stage 0 leaves ~70, and
+    the trace of 2,048 sets took minutes to read), whose cascade.stage0/1/2a/2b ranges must enclose every
+    kernel-2 and kernel-1 launch of the search.  A launch is the host-side
+    launch call that the trace pairs with the kernel by CUPTI's correlation
+    id; the port's kernels, built with the static CUDA runtime, are not
+    linked to the annotation by the profiler's own tree."""
+    import tempfile
+
+    import torch
+    from torch.autograd import DeviceType
+
+    from repro_torch import obs
+    from repro_torch.hd import search
+
+    store, q = corpus["store"], corpus["q"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "search.jsonl"
+        with obs.capture(jsonl=str(path)):
+            res = search(q, store, K_TOP, on_fault="raise")
+        events = obs.read_jsonl(path)
+    summary = obs.validate_events(events)
+    assert summary["spans"] > 0 and len(summary["rids"]) == 1 and summary["errors"] == 0, summary
+    assert res.ids.tolist() == corpus["runs"]["corpus"]["ids"]
+    table = obs.report.stage_table(events)
+    print(table, flush=True)
+
+    _, small, q_small, _, _ = corpus_store(seed + 2, N_OBS_SETS)
+    search(q_small, small, K_TOP, on_fault="raise")  # warm: first calls of the small store's shapes
+    stages = ("cascade.stage0", "cascade.stage1", "cascade.stage2a", "cascade.stage2b")
+    kernels = {"bucket_minscan_kernel": "batched_minscan", "fused_minscan_kernel": "fused_minscan"}
+    launch_calls = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    zero_counts()
+    t0 = time.perf_counter()
+    with obs.capture(record_function=True), torch.profiler.profile(activities=acts) as prof:
+        search(q_small, small, K_TOP, on_fault="raise")
+        torch.cuda.synchronize()
+    traced_s = time.perf_counter() - t0
+    launched = counts()
+    ranges, launch_ns, ours = [], {}, []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == DeviceType.CUDA:
+            which = next((v for k, v in kernels.items() if k in name), None)
+            if which is not None:
+                ours.append((which, e.correlation_id()))
+        elif name in launch_calls:
+            launch_ns[e.correlation_id()] = e.start_ns()
+        elif name in stages:
+            ranges.append((name, e.start_ns(), e.end_ns()))
+    enclosed = {s: dict.fromkeys(kernels.values(), 0) for s in (*stages, None)}
+    for which, corr in ours:
+        t = launch_ns.get(corr)
+        stage = next((n for n, lo, hi in ranges if t is not None and lo <= t <= hi), None)
+        enclosed[stage][which] += 1
+    assert {n for n, _, _ in ranges} == set(stages), ranges
+    for which in kernels.values():  # every launch of the search, inside a stage range
+        assert sum(1 for w, _ in ours if w == which) == launched[which], (which, len(ours), launched)
+        assert enclosed[None][which] == 0, enclosed
+    assert enclosed["cascade.stage1"]["batched_minscan"] > 0 and enclosed["cascade.stage2b"]["fused_minscan"] > 0, \
+        enclosed
+    out = {"jsonl": summary, "stage_table_rows": table.count("\n") - 1, "profiled_sets": N_OBS_SETS,
+           "traced_s": traced_s, "profiler_ranges": sorted({n for n, _, _ in ranges}),
+           "launches_by_stage": {s: enclosed[s] for s in stages}, "launches": launched}
+    emit({"phase": "obs", **out})
+    return out
+
+
 # ---------------------------------------------------------------------------
 # kernel 4 and the LM serving path
 # ---------------------------------------------------------------------------
 
 
-def weighted_abs_v(q, k, v, *, causal: bool):
+def weighted_abs_v(q, k, v, *, causal: bool, q_offset: int = 0, window: int | None = None):
     """Σ_i w_i·|v_i| per output entry: the attention weights of (q, k) applied
     to |v|, in fp32 (float64 for float64) with p left unrounded.  It scales
     the p-rounding term of :func:`flash_error`."""
@@ -2197,7 +2439,7 @@ def weighted_abs_v(q, k, v, *, causal: bool):
     wide = torch.promote_types(q.dtype, torch.float32)
     sk = k.shape[1]
     return F.flash_attention_plain(q.to(wide), k.to(wide), v.to(wide).abs(), causal=causal,
-                                   chunk=512 if sk % 512 == 0 else sk)
+                                   chunk=512 if sk % 512 == 0 else sk, q_offset=q_offset, window=window)
 
 
 def flash_error(out, want, abs_v, *, exact: bool = False) -> dict:
@@ -2242,26 +2484,31 @@ def phase_flash_vs_plain(seed: int) -> float:
 
     gen = make_generator(seed + 13, DEVICE)
     rows, worst = [], 0.0
-    for b, sq, sk, h, kv, hd, dtype_name, causal in FLASH_CASES:
+    for case in FLASH_CASES:
+        b, sq, sk, h, kv, hd, dtype_name, causal, q_offset, window = (*case, 0, None)[:10]
+        mask = {"q_offset": q_offset, "window": window}
         dtype = getattr(torch, dtype_name)
         q = torch.randn((b, sq, h, hd), generator=gen, device=DEVICE).to(dtype)
         k = torch.randn((b, sk, kv, hd), generator=gen, device=DEVICE).to(dtype)
         v = torch.randn((b, sk, kv, hd), generator=gen, device=DEVICE).to(dtype)
         before = route_counts()
-        out = F.flash_attention(q, k, v, causal=causal)
+        out = F.flash_attention(q, k, v, causal=causal, **mask)
         torch.cuda.synchronize()
         assert out.shape == q.shape and out.dtype == dtype and bool(torch.isfinite(out).all())
         route = F.route(dtype, hd)
         assert route_counts()[route] == before[route] + 1, (route, before, route_counts())
-        row = {"case": [b, sq, sk, h, kv, hd, dtype_name, causal], "route": route}
-        abs_v = weighted_abs_v(q, k, v, causal=causal)
+        row = {"case": list(case), "route": route, "instance_hd": F.instance(route, hd)}
+        abs_v = weighted_abs_v(q, k, v, causal=causal, **mask)
         chunks = (64, 512) if sk % 512 == 0 else (sk,)
         for c in chunks:
-            e = flash_error(out, F.flash_attention_plain(q, k, v, causal=causal, chunk=c), abs_v)
+            e = flash_error(out, F.flash_attention_plain(q, k, v, causal=causal, chunk=c, **mask), abs_v)
             assert e["max_ratio"] <= 1, (row, f"plain chunk {c}", e)
             row[f"plain_chunk{c}"] = e
             worst = max(worst, e["max_abs_err"])
-        want = attention_ref(q.double(), k.double(), v.double(), causal=causal)
+        if window is None:
+            want = attention_ref(q.double(), k.double(), v.double(), causal=causal, q_offset=q_offset)
+        else:  # the reference's recurrence in float64, one chunk: rows that see no key included
+            want = F.flash_attention_plain(q.double(), k.double(), v.double(), causal=causal, chunk=sk, **mask)
         e = flash_error(out, want, abs_v, exact=True)
         assert e["max_ratio"] <= 1, (row, "float64", e)
         row["float64"] = e
@@ -2281,6 +2528,11 @@ def bf16_logit_tolerance(n_layers: int) -> float:
     output, the o and down products, SwiGLU's h, two residual adds) and 3
     for the final norm.  Two bf16 computations: twice this."""
     return (14 * n_layers + 3) ** 0.5 * 2.0 ** -8
+
+
+# fp32 logits against the float64 model: the reference's own fp32 relative
+# tolerance (tests/test_kernels.py:115), as a relative L2 distance.
+FP32_LOGIT_TOL = 1e-4
 
 
 def rel_l2(a, b) -> float:
@@ -2304,9 +2556,11 @@ def flash_replaced(fn):
 
 def timed_prefill(model, tokens, cfg) -> tuple:
     """(logits, wall seconds, kernel-4 launches) of one counted prefill_step;
-    every launch must take the bf16 tensor-core route."""
+    every launch must take the route of the config's dtype and head dim
+    (TinyLlama's bf16: the tensor cores; the smoke config's fp32: FFMA)."""
     import torch
 
+    from repro_torch.kernels.flash_attention import flash as F
     from repro_torch.models import transformer as T
 
     torch.cuda.synchronize()
@@ -2317,7 +2571,8 @@ def timed_prefill(model, tokens, cfg) -> tuple:
     dt = time.perf_counter() - t0
     n = counts()
     assert n["flash_fwd"] == cfg.n_layers, n
-    assert route_counts() == {"wgmma": cfg.n_layers, "ffma": 0}, route_counts()
+    route = F.route(cfg.dtype, cfg.head_dim)
+    assert route_counts() == {**dict.fromkeys(F.ROUTES, 0), route: cfg.n_layers}, route_counts()
     assert n["fused_minscan"] == n["batched_minscan"] == n["multiquery_minscan"] == 0, n
     assert logits.shape == (tokens.shape[0], cfg.vocab) and logits.dtype == torch.float32
     assert bool(torch.isfinite(logits).all())
@@ -2329,7 +2584,7 @@ def phase_lm(seed: int) -> dict:
 
     import torch
 
-    from repro_torch.configs.base import load_arch
+    from repro_torch.configs.base import load_arch, smoke_lm_config
     from repro_torch.data import synth
     from repro_torch.data.pointclouds import make_generator
     from repro_torch.kernels.flash_attention import flash as F
@@ -2353,7 +2608,8 @@ def phase_lm(seed: int) -> dict:
     model64 = T.TransformerLM(cfg64, device=DEVICE)
     model64.load_state_dict(model.state_dict())
     with uncounted(), flash_replaced(
-            lambda q, k, v, causal=True: F.flash_attention_plain(q, k, v, causal=causal, chunk=cfg.attn_chunk)):
+            lambda q, k, v, causal=True, **mask: F.flash_attention_plain(q, k, v, causal=causal,
+                                                                          chunk=cfg.attn_chunk, **mask)):
         logits64 = T.prefill_step(model64, prompt, cfg64)
     del model64
     torch.cuda.empty_cache()
@@ -2380,10 +2636,10 @@ def phase_lm(seed: int) -> dict:
     # The first shape once more, uncounted, every kernel-4 call held to the plain version.
     held = []
 
-    def checked(q, k, v, causal=True):
-        got = wrapper(q, k, v, causal=causal)
-        e = flash_error(got, F.flash_attention_plain(q, k, v, causal=causal, chunk=cfg.attn_chunk),
-                        weighted_abs_v(q, k, v, causal=causal))
+    def checked(q, k, v, causal=True, **mask):
+        got = wrapper(q, k, v, causal=causal, **mask)
+        e = flash_error(got, F.flash_attention_plain(q, k, v, causal=causal, chunk=cfg.attn_chunk, **mask),
+                        weighted_abs_v(q, k, v, causal=causal, **mask))
         assert e["max_ratio"] <= 1, ("held prefill call", len(held), e)
         held.append({"q": list(q.shape), "k": list(k.shape), **e})
         return got
@@ -2430,11 +2686,55 @@ def phase_lm(seed: int) -> dict:
                      "vs_prefill_rel_l2": err, "tol": 2 * tol,
                      "argmax_agree": float((step_logits.argmax(-1) == logits.argmax(-1)).float().mean())}
     out["held"] = held_summary("prefill {} x {}".format(*PREFILL_SHAPES[0]), held)
+    del cache
+
+    # A sliding window: TinyLlama with LM_WINDOW at 1 × 32,768, every layer's
+    # kernel-4 launch skipping the key tiles before its blocks' windows.
+    b, s = PREFILL_SHAPES[1]
+    cfg_w = dataclasses.replace(cfg, window=LM_WINDOW)
+    tokens = synth.lm_batch(gen, cfg, b, s)["tokens"][:, :s]
+    logits, dt, n = timed_prefill(model, tokens, cfg_w)
+    out["launches"] += n
+    out["route_launches"]["wgmma"] += n
+    out["windowed_prefill"] = {"batch": b, "seq": s, "window": LM_WINDOW, "wall_s": dt,
+                               "tokens_per_s": b * s / dt, "launches": n}
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    del cache, model
+    del model, tokens, logits
+    torch.cuda.empty_cache()
+
+    # The smoke config (2 layers, 4/2 heads of 16, fp32): kernel 4's fp32
+    # route at hd 16, against the same model in float64 through the plain
+    # functions.
+    cfg_s = smoke_lm_config(load_arch(LM_ARCH).config)
+    model_s = T.init_lm_params(gen, cfg_s)
+    prompt = synth.lm_batch(gen, cfg_s, 2, F64_PROMPT)["tokens"][:, :F64_PROMPT]
+    logits, dt, n = timed_prefill(model_s, prompt, cfg_s)
+    out["launches"] += n
+    out["route_launches"]["ffma"] += n
+    cfg_s64 = dataclasses.replace(cfg_s, dtype=torch.float64)
+    model_s64 = T.TransformerLM(cfg_s64, device=DEVICE)
+    model_s64.load_state_dict(model_s.state_dict())
+    with uncounted(), flash_replaced(
+            lambda q, k, v, causal=True, **mask: F.flash_attention_plain(q, k, v, causal=causal,
+                                                                          chunk=cfg_s.attn_chunk, **mask)):
+        logits64 = T.prefill_step(model_s64, prompt, cfg_s64)
+    err = rel_l2(logits, logits64)
+    assert err <= FP32_LOGIT_TOL, ("fp32 smoke prefill vs float64", err, FP32_LOGIT_TOL)
+    out["smoke"] = {"config": "smoke_lm_config(" + LM_ARCH + ")", "head_dim": cfg_s.head_dim,
+                    "dtype": str(cfg_s.dtype), "batch": 2, "tokens": F64_PROMPT, "launches": n,
+                    "wall_s": dt, "float64_rel_l2": err, "tol": FP32_LOGIT_TOL,
+                    "argmax_equal": bool(torch.equal(logits.argmax(-1), logits64.argmax(-1)))}
+    del model_s, model_s64
     torch.cuda.empty_cache()
     emit({"phase": "lm", **{k: v for k, v in out.items() if k != "held"}, "held": out["held"]})
     return out
+
+
+def visible_pairs(b: int, h: int, s: int, window) -> float:
+    """(q, k) pairs a causal prefill of S tokens sees, over b·h heads: S(S+1)/2,
+    or with a window W, W(W+1)/2 + (S − W)·W."""
+    w = s if window is None else min(window, s)
+    return b * h * (w * (w + 1) / 2 + (s - w) * w)
 
 
 def phase_times_flash(seed: int, env: dict) -> list[dict]:
@@ -2445,45 +2745,74 @@ def phase_times_flash(seed: int, env: dict) -> list[dict]:
 
     gen = make_generator(seed + 15, DEVICE)
     rows = []
-    for b, s, cfg_h, cfg_kv, hd in FLASH_TIMES:
-        q = torch.randn((b, s, cfg_h, hd), generator=gen, device=DEVICE).to(torch.bfloat16)
-        k = torch.randn((b, s, cfg_kv, hd), generator=gen, device=DEVICE).to(torch.bfloat16)
-        v = torch.randn((b, s, cfg_kv, hd), generator=gen, device=DEVICE).to(torch.bfloat16)
+    for b, s, cfg_h, cfg_kv, hd, dtype_name, window in FLASH_TIMES:
+        dtype = getattr(torch, dtype_name)
+        q = torch.randn((b, s, cfg_h, hd), generator=gen, device=DEVICE).to(dtype)
+        k = torch.randn((b, s, cfg_kv, hd), generator=gen, device=DEVICE).to(dtype)
+        v = torch.randn((b, s, cfg_kv, hd), generator=gen, device=DEVICE).to(dtype)
         out = torch.empty_like(q)
         with uncounted():
-            ms = cuda_ms(lambda: F.flash_fwd(q, k, v, out, causal=True))
+            ms = cuda_ms(lambda: F.flash_fwd(q, k, v, out, causal=True, window=window))
         plain = {}
 
         def plain_fn():
-            plain["out"] = F.flash_attention_plain(q, k, v, causal=True)
+            plain["out"] = F.flash_attention_plain(q, k, v, causal=True, window=window)
 
         plain_ms = cuda_ms(plain_fn, reps=3)
-        e = flash_error(out, plain["out"], weighted_abs_v(q, k, v, causal=True))
-        assert e["max_ratio"] <= 1, ("timed kernel vs plain", b, s, hd, e)
+        e = flash_error(out, plain["out"], weighted_abs_v(q, k, v, causal=True, window=window))
+        assert e["max_ratio"] <= 1, ("timed kernel vs plain", b, s, hd, window, e)
         del plain["out"]
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        # The yardstick on its flash backend only: its math fallback would
-        # materialise a (B, H, S, S) score tensor (137 GB at 32,768).
-        with torch.nn.attention.sdpa_kernel(torch.nn.attention.SDPBackend.FLASH_ATTENTION):
-            library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True))
-        pairs = b * cfg_h * s * (s + 1) / 2
+        extra = {}
+        if window is None and dtype == torch.bfloat16:
+            # The yardstick on its flash backend only: its math fallback would
+            # materialise a (B, H, S, S) score tensor (137 GB at 32,768).
+            backend = torch.nn.attention.SDPBackend.FLASH_ATTENTION
+            with torch.nn.attention.sdpa_kernel(backend):
+                library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True))
+        else:
+            # An explicit (S, S) mask, the band of the window or the causal
+            # triangle, on the memory-efficient backend (the flash backend
+            # takes no mask); kv heads expanded first, outside the timing.
+            pos = torch.arange(s, device=DEVICE)
+            band = pos[:, None] >= pos[None, :]
+            if window is not None:
+                band &= (pos[:, None] - pos[None, :]) < window
+            kx = kt.repeat_interleave(cfg_h // cfg_kv, dim=1)
+            vx = vt.repeat_interleave(cfg_h // cfg_kv, dim=1)
+            backend = torch.nn.attention.SDPBackend.EFFICIENT_ATTENTION
+            with torch.nn.attention.sdpa_kernel(backend):
+                library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kx, vx, attn_mask=band))
+                if window is None:  # the same backend with its own causal mask, no mask read
+                    extra["library_is_causal_ms"] = cuda_ms(
+                        lambda: torch.nn.functional.scaled_dot_product_attention(qt, kx, vx, is_causal=True))
+                    extra["vs_library_is_causal"] = ms / extra["library_is_causal_ms"]
+            del band, kx, vx
+        pairs = visible_pairs(b, cfg_h, s, window)
         flops = 4.0 * hd * pairs
-        nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
-        op_ms = max(flops / (env["bf16_peak_tflops"] * 1e12), pairs / env["mufu_per_s"]) * 1e3
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        peak = env["bf16_peak_tflops" if dtype == torch.bfloat16 else "fp32_peak_tflops"] * 1e12
+        op_ms = max(flops / peak, pairs / env["mufu_per_s"]) * 1e3
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ms = max(op_ms, byte_ms)
-        rows.append({"shape": [b, s, cfg_h, cfg_kv, hd], "label": f"{b}x{s} {cfg_h}/{cfg_kv}x{hd}",
-                     "route": F.route(q.dtype, hd), "ms": ms,
-                     "plain_ms": plain_ms, "library_ms": library_ms, **e,
-                     "bound_ms": bound_ms,
+        label = f"{b}x{s} {cfg_h}/{cfg_kv}x{hd} {dtype_name}" + ("" if window is None else f" window {window}")
+        rows.append({"shape": [b, s, cfg_h, cfg_kv, hd], "dtype": dtype_name, "window": window, "label": label,
+                     "route": F.route(q.dtype, hd), "instance_hd": F.instance(F.route(q.dtype, hd), hd),
+                     "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "sdpa_backend": backend.name,
+                     **e, "bound_ms": bound_ms,
                      "bound_by": "operations" if op_ms >= byte_ms else "bytes",
-                     "flops_ms": flops / (env["bf16_peak_tflops"] * 1e12) * 1e3,
+                     "flops_ms": flops / peak * 1e3,
                      "exp_ms": pairs / env["mufu_per_s"] * 1e3, "bytes_ms": byte_ms,
                      "achieved_tflops": flops / (ms * 1e-3) / 1e12,
-                     "share_of_bound": bound_ms / ms, "vs_library": ms / library_ms})
+                     "share_of_bound": bound_ms / ms, "vs_library": ms / library_ms, **extra})
         del q, k, v, out, qt, kt, vt
         torch.cuda.empty_cache()
+    for r in rows:  # a windowed shape against the causal one of the same shape
+        same = [c for c in rows if c["window"] is None and (c["shape"], c["dtype"]) == (r["shape"], r["dtype"])]
+        if r["window"] is not None and same:
+            r["vs_causal_same_shape"] = r["ms"] / same[0]["ms"]
     emit({"phase": "times_flash", "rows": rows})
     return rows
 
@@ -2615,7 +2944,12 @@ def main() -> int:
     emit({"phase": "main_path", "path": "serve", "launches": serve_launches, "by_request": served["launches"],
           "wall_s": time.perf_counter() - t0})
 
+    # Phase 11b: the rest of obs (JSONL export, report, the profiler bridge).
+    phase_obs(args.seed, corpus)
+
     rows = phase_times(args.seed, env)
+    # Phase 7b: the paper's exact baselines (two-sweep: two kernel-1 launches).
+    baselines = phase_baselines(args.seed, env)
     rows2 = phase_times_batched(corpus, env)
     rows3 = phase_times_multiquery(corpus, batch, env)
     held2, held3 = (corpus["held"], served["held"]), (batch["held"],)
@@ -2626,8 +2960,11 @@ def main() -> int:
     # per prefill_step call and over the decode loop inside phase_lm).
     t0 = time.perf_counter()
     lm = phase_lm(args.seed)
-    # Every prefill_step launch went through the bf16 tensor-core route.
-    assert lm["route_launches"] == {"wgmma": lm["launches"], "ffma": 0}, lm["route_launches"]
+    # TinyLlama's bf16 prefills (the windowed one included) went through the
+    # tensor-core route, the fp32 smoke config's through the FFMA route.
+    smoke_n = lm["smoke"]["launches"]
+    assert smoke_n == 2, lm["smoke"]
+    assert lm["route_launches"] == {"wgmma": lm["launches"] - smoke_n, "ffma": smoke_n}, lm["route_launches"]
     emit({"phase": "main_path", "path": "lm_serve", "launches": {"flash_fwd": lm["launches"]},
           "route_launches": lm["route_launches"], "wall_s": time.perf_counter() - t0})
     rows4 = phase_times_flash(args.seed, env)
@@ -2638,7 +2975,8 @@ def main() -> int:
     emit({"kernels": [
         kernel_entry("fused_minscan", "cuda", KERNEL_SOURCE, TPU_KERNEL,
                      pair_launches + total("fused_minscan") + dist_launches["fused_minscan"]
-                     + sum(c["fused_minscan"] for c in side_launches.values()),
+                     + sum(c["fused_minscan"] for c in side_launches.values())
+                     + baselines["twosweep"]["launches"],
                      max(max_err, exact_err), rows),
         kernel_entry("batched_minscan", "cuda", KERNEL2_SOURCE, TPU_KERNEL2,
                      total("batched_minscan"), max_err2, rows2, held2),

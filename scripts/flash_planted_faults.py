@@ -6,17 +6,31 @@ chip_smoke's tolerance rejects each of them.
 
 Builds copies of ``src/repro_torch/kernels/flash_attention/csrc/flash_fwd_sm90.cu``
 (the bf16 route, ``flash.route`` ``"wgmma"``) into a temporary directory,
-each with one fault planted: the last or a middle key tile given no weight,
-the first tile's p counted twice in P·V, a missing rescale of acc or l, the
-wrong kv head, or the diagonal tile left unmasked; one ``nvcc`` each,
-started together.  Each copy and the untouched source run at TinyLlama's
-prefill shape (8 × 4,096, 32 query and 4 kv heads of 64, bf16), causal and
-not, and are held entry by entry to the plain version with
-``chip_smoke.flash_error``, the check that phases 13-15 of ``chip_smoke.py``
-apply.  Prints one JSON line per (variant, case) and a summary line; exits
-0 when the untouched source passes every case and every fault fails every
-case it can reach (the unmasked diagonal: the causal one; without the mask
-it is no fault).  Needs one CUDA card and ``nvcc``.
+each with one fault planted; one ``nvcc`` each, started together.
+
+``FAULTS`` sit in code that both instances run, but the unmasked diagonal,
+which only the plain causal instance ``<HD, false>`` has: the last or a
+middle key tile given no weight, the first tile's p counted twice in P·V, a
+missing rescale of acc or l, the wrong kv head, the diagonal tile left
+unmasked.  They run at TinyLlama's prefill shape (8 × 4,096, 32 query and
+4 kv heads of 64, bf16), causal and not, and each must fail every case it
+can reach (the unmasked diagonal: the causal one; without the mask it is
+no fault).
+
+``SPAN_FAULTS`` sit in code that only the instance for query offsets and
+windows ``<HD, true>`` runs: the window test off by one, the first key tile
+of a block's walk skipped, and hidden keys masked with −inf in place of the
+finite ``MASKED``.  They run at ``SPAN_CASES`` (a 50-key window at 1 ×
+1,024, and an offset and window that leave rows seeing no key); each must
+fail the cases it names, pass the others (−inf masking is no fault where
+every row sees a key) and pass TinyLlama's shape, whose instance does not
+hold it.
+
+Every copy and the untouched source are held entry by entry to the plain
+version with ``chip_smoke.flash_error``, the check that phases 13-15 of
+``chip_smoke.py`` apply; the untouched source must pass every case.
+Prints one JSON line per (variant, case) and a summary line; exits 0 when
+every verdict is as expected.  Needs one CUDA card and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -34,25 +48,46 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as C  # noqa: E402  (puts src/ on the path)
 
 SHAPE = (8, 4_096, 32, 4, 64)  # B, S, H, KV, hd
-SOFTMAX = "c.softmax(kt * BN, row0, col0, Sk, masked(kt), causal, scale_log2);"
+SOFTMAX = "c.template softmax<SPAN>(kt * BN, pos0, col0, Sk, masked(kt), causal, window, scale_log2);"
 # variant -> (text in the source, its replacement); each text occurs once.
 FAULTS = {
-    "skip_last_tile": (SOFTMAX, "c.softmax(kt * BN, row0, col0, kt == n_tiles - 1 ? 0 : Sk, "
-                                "masked(kt) || kt == n_tiles - 1, causal, scale_log2);"),
-    "skip_middle_tile": (SOFTMAX, "c.softmax(kt * BN, row0, col0, kt == n_tiles / 2 ? 0 : Sk, "
-                                  "masked(kt) || kt == n_tiles / 2, causal, scale_log2);"),
-    "double_first_tile": ("c.softmax(0, row0, col0, Sk, masked(0), causal, scale_log2);",
-                          "c.softmax(0, row0, col0, Sk, masked(0), causal, scale_log2);\n"
+    "skip_last_tile": (SOFTMAX, "c.template softmax<SPAN>(kt * BN, pos0, col0, i == n_tiles - 1 ? 0 : Sk, "
+                                "masked(kt) || i == n_tiles - 1, causal, window, scale_log2);"),
+    "skip_middle_tile": (SOFTMAX, "c.template softmax<SPAN>(kt * BN, pos0, col0, i == n_tiles / 2 ? 0 : Sk, "
+                                  "masked(kt) || i == n_tiles / 2, causal, window, scale_log2);"),
+    "double_first_tile": ("c.template softmax<SPAN>(kt0 * BN, pos0, col0, Sk, masked(kt0), causal, window, "
+                          "scale_log2);",
+                          "c.template softmax<SPAN>(kt0 * BN, pos0, col0, Sk, masked(kt0), causal, window, "
+                          "scale_log2);\n"
                           "    for (float& x : c.s) x *= 2.f;"),
     "no_rescale_acc": ("for (int r = 0; r < N64; ++r) o64[r][i] *= corr[(i >> 1) & 1];",
                        "for (int r = 0; r < N64; ++r) o64[r][i] *= 1.f;"),
     "no_rescale_l": ("for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];",
                      "for (int r = 0; r < 2; ++r) l[r] = l[r] + sum[r];"),
     "kv_head_mod": ("const int kvh = h / (H / KV);", "const int kvh = h % KV;"),
-    "diagonal_unmasked": ("if (col >= Sk || (causal && col > row)) s[i] = -CUDART_INF_F;",
-                          "if (col >= Sk) s[i] = -CUDART_INF_F;"),
+    "diagonal_unmasked": ("} else if (col >= Sk || (causal && col > pos)) {", "} else if (col >= Sk) {"),
 }
 CAUSAL_ONLY = {"diagonal_unmasked"}
+# case -> (B, Sq, Sk, H, KV, hd, q_offset, window), bf16, causal.
+SPAN_CASES = {
+    "window50": (1, 1_024, 1_024, 32, 4, 64, 0, 50),
+    # positions 1,100-1,299 over 1,000 keys, window 150: rows from 1,149 on see no key
+    "no_key_rows": (1, 200, 1_000, 8, 2, 64, 1_100, 150),
+}
+SPAN_MASK = "else if (causal && !visible(pos, col, window)) s[i] = MASKED;"
+# variant -> (text in the source, its replacement, the SPAN_CASES it must fail)
+SPAN_FAULTS = {
+    "window_off_by_one": (SPAN_MASK, "else if (causal && !visible(pos, col, window + 1)) s[i] = MASKED;",
+                          ("window50", "no_key_rows")),
+    "first_tile_skipped": ("const int kt0 = tiles.first, n_tiles = tiles.count;",
+                           "const int kt0 = tiles.first + (SPAN && tiles.count > 1), "
+                           "n_tiles = tiles.count - (SPAN && tiles.count > 1);",
+                           ("window50", "no_key_rows")),
+    # where every row sees a key, the running max starts finite and −inf
+    # gives the same p = 0 as MASKED: no fault there
+    "masked_as_inf": (SPAN_MASK, "else if (causal && !visible(pos, col, window)) s[i] = -CUDART_INF_F;",
+                      ("no_key_rows",)),
+}
 
 
 def build_variants(tmp: Path) -> dict:
@@ -62,8 +97,11 @@ def build_variants(tmp: Path) -> dict:
     from repro_torch.kernels.flash_attention import flash as F
 
     text = F.SOURCE_SM90.read_text()
+    for header in F.SOURCE_SM90.parent.glob("*.cuh"):  # the includes beside the source
+        (tmp / header.name).write_text(header.read_text())
     jobs = {}
-    for name, (old, new) in {"none": ("", ""), **FAULTS}.items():
+    planted = {**FAULTS, **{n: (old, new) for n, (old, new, _) in SPAN_FAULTS.items()}}
+    for name, (old, new) in {"none": ("", ""), **planted}.items():
         if old:
             assert text.count(old) == 1, (name, text.count(old))
         src = tmp / f"flash_fwd_sm90_{name}.cu"
@@ -113,17 +151,36 @@ def main() -> int:
                     out = F.flash_attention(q, k, v, causal=causal)
                     e = C.flash_error(out, want, abs_v)
                     passed = e["max_ratio"] <= 1
-                    is_fault = name != "none" and (causal or name not in CAUSAL_ONLY)
-                    verdicts[(name, causal)] = passed != is_fault
+                    is_fault = name in FAULTS and (causal or name not in CAUSAL_ONLY)
+                    verdicts[(name, f"causal={causal}")] = passed != is_fault
                     C.emit({"variant": name, "causal": causal, "shape": list(SHAPE), "passed": passed,
                             "entries": out.numel(), **e})
                     del out
                 del want, abs_v
+            del q, k, v
+            for case, (b, sq, sk, h, kv, hd, off, window) in SPAN_CASES.items():
+                q = torch.randn((b, sq, h, hd), generator=gen, device="cuda").to(torch.bfloat16)
+                k = torch.randn((b, sk, kv, hd), generator=gen, device="cuda").to(torch.bfloat16)
+                v = torch.randn((b, sk, kv, hd), generator=gen, device="cuda").to(torch.bfloat16)
+                mask = {"q_offset": off, "window": window}
+                want = F.flash_attention_plain(q, k, v, causal=True, chunk=sk, **mask)
+                abs_v = C.weighted_abs_v(q, k, v, causal=True, **mask)
+                for name in ("none", *SPAN_FAULTS):
+                    F._lib = libs[name]
+                    out = F.flash_attention(q, k, v, causal=True, **mask)
+                    e = C.flash_error(out, want, abs_v)
+                    passed = e["max_ratio"] <= 1  # NaN fails
+                    is_fault = name != "none" and case in SPAN_FAULTS[name][2]
+                    verdicts[(name, case)] = passed != is_fault
+                    C.emit({"variant": name, "case": case, "shape": [b, sq, sk, h, kv, hd], "q_offset": off,
+                            "window": window, "passed": passed, "entries": out.numel(), **e})
+                    del out
+                del q, k, v, want, abs_v
         finally:
             F._lib = pristine
     ok = all(verdicts.values())
-    C.emit({"planted_faults": len(FAULTS), "as_expected": ok,
-            "wrong": [f"{n} causal={c}" for (n, c), good in verdicts.items() if not good]})
+    C.emit({"planted_faults": len(FAULTS) + len(SPAN_FAULTS), "as_expected": ok,
+            "wrong": [f"{n} {c}" for (n, c), good in verdicts.items() if not good]})
     return 0 if ok else 1
 
 

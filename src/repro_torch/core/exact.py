@@ -12,10 +12,18 @@ Counterpart of ``repro/core/exact.py``:
   mins (B→A).  With prune tables, tile pairs that provably cannot hold a
   min skip their GEMM.  It runs on any device and is the ``tiled``
   backend; the kernel's wrapper runs it for CPU tensors.
+- ``hausdorff_twosweep_tiled``: the paper-era baseline of the fused scan,
+  two ``directed_hd_tiled`` sweeps (every d² tile computed twice).  Its
+  kernel counterpart, two launches of kernel 1's directed instance, is
+  ``repro_torch.kernels.hausdorff.ops.hausdorff_twosweep_tiled``.
+- ``directed_hd_earlybreak`` / ``hausdorff_earlybreak``: the EBHD
+  early-break double loop (Taha & Hanbury 2015), the paper's exact
+  baseline, on the inputs' device.  Not a fast path on any device.
 
-All take optional validity masks: invalid rows are zeroed (garbage cannot
-leak NaN through the GEMM) and their squared norms poisoned with +inf, so
-they win neither direction's min.  An empty query side gives H = 0.0.
+All but the early-break pair take optional validity masks: invalid rows
+are zeroed (garbage cannot leak NaN through the GEMM) and their squared
+norms poisoned with +inf, so they win neither direction's min.  An empty
+query side gives H = 0.0.
 
 Arithmetic contract: ``d² = max((‖a‖² − 2a·b) + ‖b‖², 0)`` in fp32 with
 fp32 accumulation; :func:`repro_torch.device.strict_fp32` keeps TF32 off.
@@ -32,9 +40,12 @@ __all__ = [
     "pairwise_sqdist",
     "directed_hd_dense",
     "directed_hd_tiled",
+    "directed_hd_earlybreak",
     "fused_min_sqdists_tiled",
     "hausdorff_dense",
     "hausdorff_fused_tiled",
+    "hausdorff_twosweep_tiled",
+    "hausdorff_earlybreak",
 ]
 
 
@@ -197,3 +208,47 @@ def hausdorff_fused_tiled(
     )
     return torch.maximum(finalize_mins(min_a, valid_a), finalize_mins(min_b, valid_b))
 
+
+def hausdorff_twosweep_tiled(a, b, *, valid_a=None, valid_b=None, block: int = 2048) -> torch.Tensor:
+    """Historical two-directed-sweep formulation (every d² tile computed
+    twice), the baseline the fused scan is measured against."""
+    return torch.maximum(
+        directed_hd_tiled(a, b, valid_a=valid_a, valid_b=valid_b, block=block),
+        directed_hd_tiled(b, a, valid_a=valid_b, valid_b=valid_a, block=block),
+    )
+
+
+# Rows of B per step of the early break's inner loop (the break is checked
+# after each); the value does not depend on it.
+_EARLYBREAK_CHUNK = 1024
+
+
+def directed_hd_earlybreak(a, b) -> torch.Tensor:
+    """EBHD's exact directed HD (Taha & Hanbury 2015), as the reference runs it.
+
+    An outer loop over the rows of A, in order, keeps the running max ``cmax``
+    of d²; for each row an inner loop over B keeps its running min and stops
+    as soon as that min is ≤ ``cmax`` (the row cannot raise the max).  d² is
+    the difference form ``Σ (aᵢ − bⱼ)²`` in fp32.  The inner loop takes B in
+    chunks of ``_EARLYBREAK_CHUNK`` rows with the break checked after each,
+    so the work per row is a multiple of the chunk and the value unchanged.
+    Each check reads one value back to the host: on a GPU this is a
+    host-bound loop, the baseline the paper measures, not a fast path.  An
+    empty A gives 0 and an empty B +inf (the reference's loop cannot index
+    an empty B)."""
+    a = a.float()
+    b = b.float()
+    cmax = 0.0
+    for i in range(a.shape[0]):
+        best = float("inf")
+        for c0 in range(0, b.shape[0], _EARLYBREAK_CHUNK):
+            d2 = torch.sum((a[i] - b[c0:c0 + _EARLYBREAK_CHUNK]) ** 2, dim=1)
+            best = min(best, float(d2.min()))
+            if best <= cmax:
+                break
+        cmax = max(cmax, best)
+    return torch.sqrt(torch.tensor(cmax, dtype=torch.float32, device=a.device))
+
+
+def hausdorff_earlybreak(a, b) -> torch.Tensor:
+    return torch.maximum(directed_hd_earlybreak(a, b), directed_hd_earlybreak(b, a))

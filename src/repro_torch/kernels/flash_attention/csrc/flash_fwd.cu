@@ -10,7 +10,9 @@
 // how.  For q (B, Sq, H, hd) and k, v (B, Sk, KV, hd), per query row:
 //
 //     s     = (q · kᵀ, fp32 accumulation) · scale        scale after the dot
-//     s     = −1e30 where causal and q_pos < k_pos
+//     s     = −1e30 where causal and key k_pos is not visible to q_pos
+//             (q_pos = q_offset + row; visible: k_pos ≤ q_pos and
+//             q_pos − k_pos < window, see flash_mask.cuh)
 //     m_new = max(m, rowmax(s));  p = exp(s − m_new);  corr = exp(m − m_new)
 //     l     = l·corr + Σ p                               (fp32 p)
 //     acc   = acc·corr + round_to_v_dtype(p) · v         (fp32 accumulation)
@@ -21,7 +23,8 @@
 // Design:
 //  * One CTA of 256 threads per (b·h, 64-row query block); query blocks
 //    are taken heaviest first (blockIdx.x reversed), so the long causal
-//    rows start early.  The CTA walks 64-key tiles of its kv head, staged
+//    rows start early (with a window the blocks' work is about equal, and
+//    the order harmless).  The CTA walks 64-key tiles of its kv head, staged
 //    in shared memory as fp32 with Q; each thread owns 4 query rows
 //    (ty + 16i) × 4 keys (tx + 16j) of the score tile and 4 rows × hd/16
 //    output columns (tx + 16j).  Rows reduce across the 16 tx lanes of a
@@ -30,15 +33,19 @@
 //  * GQA by indexing: query head h reads kv head h / (H / KV), which is
 //    what the reference's jnp.repeat(k, groups, axis=2) holds, with no
 //    expanded copy.
-//  * A key tile wholly above the diagonal is skipped, not masked.  That is
-//    exact: in the reference such a chunk gives p = 0 and corr = 1, since
-//    key 0 is visible to every row from the first tile on.  Keys past Sk
-//    (the ragged edge) get no weight; rows past Sq are not written.  So no
-//    shape has to divide the tiles.
+//  * Key tiles wholly after the block's last position, or wholly before
+//    its first row's window, are skipped, not masked; masked keys inside the
+//    walked tiles get the reference's −1e30 (key_tiles in flash_mask.cuh
+//    says why both are exact, rows that see no key included).  Keys past Sk
+//    (the ragged edge) get −inf, no weight; rows past Sq are not written.
+//    So no shape has to divide the tiles.
 //  * p enters l and the P·V product in fp32 (v's dtype), as both reference
 //    functions do.
-//  * hd ∈ {64, 80, 128} (TinyLlama, StableLM-3B, DeepSeek-67B) as template
-//    instances; the launcher rejects any other.
+//  * hd ∈ {16, 32, 48, 64, 80, 96, 128, 160, 192, 256} as template
+//    instances (the models' 16, 64, 80 and 128 among them); the launcher
+//    zero-pads any other hd ≤ 256 to the next instance, which adds exactly
+//    0 to every q·k and gives zero output columns, and keeps the true hd's
+//    scale.
 //
 // Bound on this card: the work is 4·hd fp32 FLOPs and one exp per visible
 // (q, k) pair on q, k, v, o read or written once, so the CUDA cores' FFMA
@@ -48,6 +55,8 @@
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "flash_mask.cuh"
 
 namespace {
 
@@ -112,10 +121,14 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (2 * BQ * (HD + 4) + BK * HD + BQ * (BK + 4));
 }
 
+// Two CTAs per SM up to hd 80 (ptxas then holds 128 registers, and none
+// spills); above it one, so that ptxas may use up to 255 (held to 128, hd
+// 96 and hd 128 spilled).
 template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, HD > 80 ? 1 : 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int Sq, int Sk, int H, int KV, float scale, int causal) {
+                 T* __restrict__ o, int Sq, int Sk, int H, int KV, float scale, int causal,
+                 int q_offset, int window) {
   constexpr int QP = HD + 4;    // Qs / Ks pitch: conflict-free float4 row reads
   constexpr int VP = HD;        // Vs pitch: rows are read along hd
   constexpr int PP = BK + 4;    // Ps pitch
@@ -151,10 +164,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
   }
 
-  int n_tiles = (Sk + BK - 1) / BK;
-  if (causal) n_tiles = min(n_tiles, (min(q0 + BQ, Sq) - 1) / BK + 1);
+  const KeyTiles tiles = key_tiles(q0, BQ, Sq, Sk, BK, q_offset, window, causal);
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
+  for (int kt = tiles.first; kt < tiles.first + tiles.count; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's P·V reads are done
     load_tile<T, HD, QP>(Ks, kb, kv_stride, k0, Sk, tid);
@@ -187,14 +199,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     float corr[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int q_pos = q0 + ty + 16 * i;
+      const int q_pos = q_offset + q0 + ty + 16 * i;
       float row_max = -CUDART_INF_F;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int k_pos = k0 + tx + 16 * j;
         float x = s[i][j] * scale;
         if (k_pos >= Sk) x = -CUDART_INF_F;         // no key: exp gives 0
-        else if (causal && q_pos < k_pos) x = NEG;  // masked as the reference masks
+        else if (causal && !visible(q_pos, k_pos, window)) x = NEG;  // masked as the reference masks
         s[i][j] = x;
         row_max = fmaxf(row_max, x);
       }
@@ -243,10 +255,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int q_pos = q0 + ty + 16 * i;
-    if (q_pos >= Sq) continue;
+    const int row = q0 + ty + 16 * i;
+    if (row >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = o + (((long long)b * Sq + q_pos) * H + h) * HD;
+    T* orow = o + (((long long)b * Sq + row) * H + h) * HD;
 #pragma unroll
     for (int j = 0; j < DPT; ++j) orow[tx + 16 * j] = Elem<T>::store(acc[i][j] / denom);
   }
@@ -254,7 +266,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk, int H,
-           int KV, float scale, int causal, cudaStream_t stream) {
+           int KV, float scale, int causal, int q_offset, int window, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -262,7 +274,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
   const dim3 grid((Sq + BQ - 1) / BQ, B * H);
   flash_fwd_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, H, KV, scale, causal);
+      static_cast<T*>(o), Sq, Sk, H, KV, scale, causal, q_offset, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -270,17 +282,30 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
 
 // Launches one fp32 forward pass on `stream`.  q, o: (B, Sq, H, hd); k, v:
 // (B, Sk, KV, hd); all contiguous and 16-byte aligned; KV divides H;
-// Sk ≥ 1; B·H ≤ 65535.  scale is the reference's 1/√hd rounded to fp32.
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for an
-// hd other than 64, 80, 128).
+// Sk ≥ 1; B·H ≤ 65535.  scale is the reference's 1/√hd of the true head
+// dim, rounded to fp32; q_offset is row 0's position and window the sliding
+// window (INT_MAX for none), both of the causal mask.  Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for an hd that
+// is not an instance).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                         int Sk, int H, int KV, int hd, float scale, int causal, void* stream) {
+                         int Sk, int H, int KV, int hd, float scale, int causal, int q_offset,
+                         int window, void* stream) {
   if (B <= 0 || Sq <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FLASH_FWD_CASE(HD) \
+  case HD: return launch<float, HD>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, q_offset, window, s);
   switch (hd) {
-    case 64: return launch<float, 64>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, s);
-    case 80: return launch<float, 80>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, s);
-    case 128: return launch<float, 128>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, s);
+    FLASH_FWD_CASE(16)
+    FLASH_FWD_CASE(32)
+    FLASH_FWD_CASE(48)
+    FLASH_FWD_CASE(64)
+    FLASH_FWD_CASE(80)
+    FLASH_FWD_CASE(96)
+    FLASH_FWD_CASE(128)
+    FLASH_FWD_CASE(160)
+    FLASH_FWD_CASE(192)
+    FLASH_FWD_CASE(256)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef FLASH_FWD_CASE
 }

@@ -6,7 +6,8 @@
 // src/repro/kernels/flash_attention/flash.py:38 (wrapper `flash_attention`,
 // flash.py:81) for bf16 operands.  It computes the recurrence that
 // flash_fwd.cu's header states — scores (q·kᵀ in fp32)·scale, the causal
-// mask, running (m, l, acc) in fp32, p rounded to bf16 before P·V, l summed
+// mask (with its query offset and sliding window, flash_mask.cuh), running
+// (m, l, acc) in fp32, p rounded to bf16 before P·V, l summed
 // over the fp32 p, acc / max(l, 1e−30) cast to bf16 — with the arithmetic
 // moved to the tensor cores:
 //  * S = Q·Kᵀ is `wgmma.mma_async` m64nBNk16 (bf16 in, fp32 accumulate) with
@@ -14,23 +15,25 @@
 //    fp32, so S is the reference's fp32 dot up to the order of its sums.  The
 //    scale is applied after the product, folded with log2(e) into one FFMA
 //    ahead of `ex2.approx` (p moves by a few fp32 ulps).
-//  * O += P·V is `wgmma` m64n64k16 (and m64n16k16 at hd 80) with A = P taken
+//  * O += P·V is `wgmma` m64n64k16 (and m64n16k16 at hd 16 and 80) with A = P taken
 //    from registers: the fp32 accumulator of S, exponentiated in place and
 //    converted to bf16 pairs, is the reference's p.astype(v.dtype) and is
 //    already in the A-fragment layout.  B = V is read from shared memory in
 //    its native (keys, hd) layout, MN-major (the transpose bit).
 //
-// Design (one CTA of 384 threads per (b·h, 128-row query block), query
-// blocks heaviest causal block first, as flash_fwd.cu):
+// Design (one CTA per (b·h, query block), query blocks heaviest causal
+// block first, as flash_fwd.cu; hd ≤ 128: 384 threads and 128-row blocks,
+// hd > 128: 256 threads and 64-row blocks, see "Registers"):
 //  * Warpgroup 2 is the producer: it drops to 24 registers (`setmaxnreg`),
 //    and one thread of its first warp issues every copy.  Q, K and V are
 //    copied by TMA (`cp.async.bulk.tensor.4d`) straight from their
 //    (B, S, heads, hd) layouts, one 4-D tensor map each (strides heads·hd·2
 //    bytes), kv head h / (H / KV) (GQA by coordinate: no expanded copy).  K/V tiles of BN
-//    keys (128; 64 at hd 128) go through a ring of 2 stages, handed over
+//    keys (128; 64 at hd > 80) go through a ring of 2 stages, handed over
 //    with full / empty `mbarrier`s (K and V of a stage have a full barrier
 //    each).
-//  * Warpgroups 0 and 1 are the consumers, 64 query rows each; they raise
+//  * Warpgroups 0 and 1 are the consumers, 64 query rows each (hd > 128:
+//    warpgroup 0 alone, and warpgroup 1 the producer); they raise
 //    their registers to 240 with what the producer gave back (a CTA's
 //    warps can only trade the registers it was launched with).  Each
 //    overlaps its own work (FA3's intra-warpgroup pipeline): it issues
@@ -38,28 +41,45 @@
 //    and runs the softmax of tile j while P_{j−1}·V_{j−1} is still on the
 //    tensor cores.  The two warpgroups take turns to issue
 //    (a ping-pong on named barriers 1 and 2), so one's softmax overlaps the
-//    other's products.
+//    other's products.  A lone consumer (hd > 128) keeps its own overlap.
 //  * Shared memory holds each tile as 64-column regions with 128-byte rows
-//    (128-byte swizzle) and, at hd 80, one 16-column region with 32-byte rows
-//    (32-byte swizzle): hd 64 = 64, hd 128 = 64 + 64, hd 80 = 64 + 16, two
-//    boxes per load.  Q·Kᵀ walks the regions as k-steps of 16; P·V is one
-//    wgmma per region (N = 64 or 16).
+//    (128-byte swizzle) and, at hd 16 and 80, one 16-column region with
+//    32-byte rows (32-byte swizzle): hd 16 = 16, hd 64 = 64, hd 80 = 64 + 16,
+//    hd 128 = 2 × 64, hd 192 = 3 × 64, hd 256 = 4 × 64, one box per region
+//    and load.  Q·Kᵀ walks the regions as k-steps of 16; P·V is one wgmma
+//    per region (N = 64 or 16).
 //  * Registers: the overlap keeps the scores of tile j (BN/2 fp32 per
 //    thread), P of tile j − 1 (BN/4 bf16 pairs) and O (hd/2 fp32) live at
 //    once.  ptxas allocates every role within the launch's 168 registers
 //    (384 threads; `setmaxnreg` does not raise its budget), so hd 128 takes
 //    64-key tiles: 32 + 16 + 64 instead of 64 + 32 + 64, which spilled.
+//    At hd 192 and 256 O alone holds 96 and 128, so those instances run one
+//    consumer warpgroup in a 256-thread CTA: a budget of 255 registers, no
+//    `setmaxnreg` and no ping-pong, 64-key tiles (32 + 16 + 128 at hd 256).
 //  * Online softmax in the wgmma accumulator layout: a thread holds rows
 //    r and r + 8 of its warp's 16, BN/4 keys each; row maxima reduce across
 //    the 4 lanes of a quad, l stays a per-thread partial sum (rescaled by the
 //    quad's common factor) until the epilogue.
-//  * Masking keeps flash_fwd.cu's rules: a key tile wholly above the
-//    diagonal is never loaded; the diagonal tiles and the tile holding Sk
-//    are masked in registers from the accumulator's (row, column) layout
-//    (TMA fills keys past Sk with zeros, whose score 0 must not count); rows
-//    past Sq are not stored.  No shape has to divide a tile.
-//  * hd ∈ {64, 80, 128} (TinyLlama, StableLM-3B, DeepSeek-67B) as template
-//    instances.
+//  * Masking keeps flash_fwd.cu's rules: key tiles wholly after the block's
+//    last position or before its first row's window are never loaded
+//    (key_tiles); tiles that hold a masked key for some row of a warpgroup,
+//    and the tile holding Sk, are masked in registers from the
+//    accumulator's (row, column) layout.  Keys past Sk (TMA fills them with
+//    zeros, whose score 0 must not count) get −inf.  So do keys the plain
+//    causal mask hides: every row sees key 0 in its first tile.  With a
+//    query offset or a window (SPAN) a row may see no key at all, and a
+//    hidden key's raw score becomes MASKED = −2^99: a power of two, so its
+//    scaled score MASKED·c is exact and a row whose every score so far is
+//    hidden has p = ex2(MASKED·c − MASKED·c) = 1, as the reference's −1e30
+//    gives it.  The row's first visible key then wipes that with corr = 0;
+//    a row that sees no key ends with the mean of v, as in the reference.
+//    Rows past Sq are not stored.  No shape has to divide a tile.
+//  * hd ∈ {16, 64, 80, 128, 192, 256} as template instances (the models'
+//    16, 64, 80 and 128 among them), each twice: with a query offset or a
+//    window (SPAN), and without, where the plain causal path keeps no
+//    offset, window or sentinel logic; the launcher zero-pads any other
+//    hd ≤ 256 to the next instance, exactly (a zero column adds 0 to q·k
+//    and gives a zero output column), with the true hd's scale.
 //
 // Bound on this card: per visible (q, k) pair, 4·hd FLOPs on the bf16 tensor
 // cores (132 SMs × 4,096 FLOP per clock: 1,070 TFLOP/s at 1,980 MHz) and one
@@ -83,17 +103,17 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "flash_mask.cuh"
+
 namespace {
 
-constexpr int BM = 128;          // query rows per CTA: two consumer warpgroups of 64
-constexpr int CONSUMERS = 256;            // warpgroups 0 and 1
-constexpr int THREADS = CONSUMERS + 128;  // and the producer warpgroup
-constexpr int PRODUCER_REGS = 24;
+constexpr int PRODUCER_REGS = 24;   // two consumer warpgroups:
 constexpr int CONSUMER_REGS = 240;  // 128·24 + 256·240 ≤ 384·168, the launch's registers
 constexpr float NEG = -1e30f;       // the reference's initial running max
+constexpr float MASKED = -0x1p99f;  // a masked key's raw score (see the header)
 
 // A tile of `ROWS` rows: N64 regions of 64 columns (128-byte rows, 128-byte
-// swizzle), then at hd 80 one of 16 columns (32-byte rows, 32-byte swizzle).
+// swizzle), then at hd 16 and 80 one of 16 columns (32-byte rows, 32-byte swizzle).
 template <int HD, int ROWS>
 struct Tile {
   static constexpr int N64 = HD / 64;
@@ -106,7 +126,11 @@ struct Tile {
 
 template <int HD>
 struct Shape {
-  static constexpr int BN = HD > 80 ? 64 : 128;  // keys per tile (see the header)
+  static constexpr int NC = HD > 128 ? 1 : 2;     // consumer warpgroups (see the header)
+  static constexpr int BM = 64 * NC;              // query rows per CTA
+  static constexpr int CONSUMERS = 128 * NC;
+  static constexpr int THREADS = CONSUMERS + 128;  // and the producer warpgroup
+  static constexpr int BN = HD > 80 ? 64 : 128;   // keys per tile (see the header)
   using Q = Tile<HD, BM>;
   using KV = Tile<HD, BN>;
   // Q, K[2], V[2], then 7 mbarriers; 1,024 bytes of slack to align the base.
@@ -305,8 +329,8 @@ struct Consumer {
   static constexpr int N16 = Tq::N16;
   float s[BN / 2];            // scores of one key tile, then its fp32 p
   uint32_t p[BN / 4];         // p of the previous tile as bf16 pairs: P·V's A fragments
-  float o64[N64][32];         // output columns 64r .. 64r + 63
-  float o16[8];               // columns 64·N64 .. +15 (hd 80)
+  float o64[N64 > 0 ? N64 : 1][32];  // output columns 64r .. 64r + 63 (none at hd 16)
+  float o16[8];                      // columns 64·N64 .. +15 (hd 16 and 80)
   float m[2], l[2], corr[2];  // per row: running max (log2 units), partial l, last rescale
 
   // S = Q·Kᵀ: k-steps of 16 over each region; q is this warpgroup's Q base in
@@ -318,7 +342,7 @@ struct Consumer {
       for (int kk = 0; kk < 4; ++kk)
         wgmma_ss(s, make_desc(q + r * Tq::R64 + kk * 32, 1024, 1),
                  make_desc(k + r * Tkv::R64 + kk * 32, 1024, 1), (r | kk) != 0);
-    if (N16) wgmma_ss(s, make_desc(q16, 256, 3), make_desc(k + N64 * Tkv::R64, 256, 3), 1);
+    if (N16) wgmma_ss(s, make_desc(q16, 256, 3), make_desc(k + N64 * Tkv::R64, 256, 3), N64 > 0);
   }
 
   // O += P·V: BN/16 k-steps of 16 keys, one wgmma per region; v is the V tile's base.
@@ -351,17 +375,23 @@ struct Consumer {
   }
 
   // The online-softmax step on the score tile of keys k0 .. k0 + BN − 1 for
-  // rows row0 and row0 + 8.  Keys past Sk, and under the causal mask keys
-  // past the row, get −inf (no weight: the reference's −1e30 gives exp 0
-  // too, since key 0 reaches every row in the first tile).
-  __device__ __forceinline__ void softmax(int k0, int row0, int col0, int Sk, bool mask, bool causal,
-                                          float scale_log2) {
+  // the rows at positions pos0 and pos0 + 8.  With `mask`, keys past Sk get
+  // −inf (no weight) and keys the causal mask hides get, with SPAN, MASKED,
+  // and without it −inf (see the header).
+  template <bool SPAN>
+  __device__ __forceinline__ void softmax(int k0, int pos0, int col0, int Sk, bool mask, bool causal,
+                                          int window, float scale_log2) {
     if (mask) {
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) {
         const int col = k0 + col0 + 8 * (i >> 2) + (i & 1);
-        const int row = row0 + 8 * ((i >> 1) & 1);
-        if (col >= Sk || (causal && col > row)) s[i] = -CUDART_INF_F;
+        const int pos = pos0 + 8 * ((i >> 1) & 1);
+        if (SPAN) {
+          if (col >= Sk) s[i] = -CUDART_INF_F;
+          else if (causal && !visible(pos, col, window)) s[i] = MASKED;
+        } else if (col >= Sk || (causal && col > pos)) {
+          s[i] = -CUDART_INF_F;
+        }
       }
     }
     float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
@@ -394,16 +424,24 @@ struct Consumer {
   }
 };
 
-template <int HD>
-__global__ void __launch_bounds__(THREADS, 1)
+// SPAN: the causal mask has a query offset or a window.  Without them
+// (every model's prefill) the instance folds q_offset = 0 and no window into
+// its code, and walks and masks tiles as plain causal attention does.
+template <int HD, bool SPAN>
+__global__ void __launch_bounds__(Shape<HD>::THREADS, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tq16,
                       const __grid_constant__ CUtensorMap tk16, const __grid_constant__ CUtensorMap tv16,
                       __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H, int KV, float scale_log2,
-                      int causal) {
+                      int causal, int q_offset_arg, int window_arg) {
+  const int q_offset = SPAN ? q_offset_arg : 0;
+  const int window = SPAN ? window_arg : 0x7fffffff;
   using Tq = typename Shape<HD>::Q;
   using Tkv = typename Shape<HD>::KV;
   constexpr int BN = Shape<HD>::BN;
+  constexpr int BM = Shape<HD>::BM;
+  constexpr int NC = Shape<HD>::NC;
+  constexpr int CONSUMERS = Shape<HD>::CONSUMERS;
   extern __shared__ uint8_t smem_raw[];
   // Swizzled TMA boxes and wgmma descriptors want 1,024-byte-aligned tiles.
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -422,15 +460,18 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
   const int kvh = h / (H / KV);
   const int qb = gridDim.y - 1 - blockIdx.y;  // heaviest causal block first
   const int q0 = qb * BM;
-  int n_tiles = (Sk + BN - 1) / BN;
-  if (causal) n_tiles = min(n_tiles, (q0 + BM - 1) / BN + 1);  // tiles wholly above the diagonal are skipped
+  // Tiles kt0 .. kt0 + n_tiles − 1; the ring's stage and phase count from kt0.
+  const int all_tiles = (Sk + BN - 1) / BN;
+  const KeyTiles tiles = SPAN ? key_tiles(q0, BM, Sq, Sk, BN, q_offset, window, causal)
+                              : KeyTiles{0, causal ? min(all_tiles, (min(q0 + BM, Sq) - 1) / BN + 1) : all_tiles};
+  const int kt0 = tiles.first, n_tiles = tiles.count;
 
   if (threadIdx.x == 0) {
     mbar_init(full_q, 1);
     for (int st = 0; st < 2; ++st) {
       mbar_init(full_k(st), 1);
       mbar_init(full_v(st), 1);
-      mbar_init(empty(st), 8);  // one arrival per consumer warp
+      mbar_init(empty(st), 4 * NC);  // one arrival per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -438,35 +479,47 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
 
   // The role, warp-uniform (read from lane 0), for ptxas's register split.
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
-  if (wg == 2) {
+  if (wg == NC) {
     // ---- producer ------------------------------------------------------
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    if constexpr (NC == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == CONSUMERS) {
       mbar_expect_tx(full_q, Tq::BYTES);
       load_tile<Tq>(q_tile, &tq, &tq16, full_q, h, q0, b);
-      for (int kt = 0; kt < n_tiles; ++kt) {
-        const int st = kt & 1;
-        if (kt >= 2) mbar_wait(empty(st), ((kt >> 1) - 1) & 1);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i & 1;
+        if (i >= 2) mbar_wait(empty(st), ((i >> 1) - 1) & 1);
         mbar_expect_tx(full_k(st), Tkv::BYTES);
-        load_tile<Tkv>(k_tile(st), &tk, &tk16, full_k(st), kvh, kt * BN, b);
+        load_tile<Tkv>(k_tile(st), &tk, &tk16, full_k(st), kvh, (kt0 + i) * BN, b);
         mbar_expect_tx(full_v(st), Tkv::BYTES);
-        load_tile<Tkv>(v_tile(st), &tv, &tv16, full_v(st), kvh, kt * BN, b);
+        load_tile<Tkv>(v_tile(st), &tv, &tv16, full_v(st), kvh, (kt0 + i) * BN, b);
       }
     }
   } else {
     // ---- consumers -------------------------------------------------------
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+    if constexpr (NC == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
     const int w = wg;  // rows q0 + 64w .. q0 + 64w + 63
     const int t = threadIdx.x % 128;
     const int lane = t % 32;
     const int row0 = q0 + 64 * w + 16 * (t / 32) + lane / 4;
+    const int pos0 = q_offset + row0;  // the row's position, for the mask
     const int col0 = 2 * (lane % 4);
     const uint32_t q64 = q_tile + w * 64 * 128;
     const uint32_t q16 = q_tile + Tq::N64 * Tq::R64 + w * 64 * 32;
-    // A tile needs the mask if it holds Sk or a key past this warpgroup's first row.
+    // A tile needs the mask if it holds Sk or, under the causal mask, a key
+    // after this warpgroup's first position or (SPAN) before its last row's
+    // window.
     auto masked = [&](int kt) {
-      return kt * BN + BN > Sk || (causal && kt * BN + BN - 1 > q0 + 64 * w);
+      if constexpr (SPAN) {
+        const long long k0 = static_cast<long long>(kt) * BN;
+        const long long pos_w = static_cast<long long>(q_offset) + q0 + 64 * w;  // its first row's position
+        return k0 + BN > Sk || (causal && (k0 + BN - 1 > pos_w || k0 < pos_w + 64 - window));
+      } else {
+        return kt * BN + BN > Sk || (causal && kt * BN + BN - 1 > q0 + 64 * w);
+      }
     };
+    // The ping-pong of two consumers (a lone consumer has no one to wait for).
+    auto my_turn = [&] { if constexpr (Shape<HD>::NC == 2) named_sync(1 + w); };
+    auto your_turn = [&] { if constexpr (Shape<HD>::NC == 2) named_arrive(2 - w); };
 
     Consumer<HD> c;
     c.m[0] = c.m[1] = NEG;
@@ -480,35 +533,38 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
 
     // Ping-pong: warpgroup w issues its products after named barrier 1 + w,
     // then lets the other one go.  Warpgroup 0 goes first.
-    if (w == 1) named_arrive(1);
+    if constexpr (NC == 2) {
+      if (w == 1) named_arrive(1);
+    }
 
     mbar_wait(full_q, 0);
     mbar_wait(full_k(0), 0);
-    named_sync(1 + w);
+    my_turn();
     wgmma_fence();
     c.issue_s(q64, q16, k_tile(0));
     wgmma_commit();
-    named_arrive(2 - w);
+    your_turn();
     wgmma_wait<0>();
     pin(c.s);
-    c.softmax(0, row0, col0, Sk, masked(0), causal, scale_log2);
+    c.template softmax<SPAN>(kt0 * BN, pos0, col0, Sk, masked(kt0), causal, window, scale_log2);
     c.convert_p();
 
-    for (int kt = 1; kt < n_tiles; ++kt) {
-      const int st = kt & 1, prev = st ^ 1;
-      mbar_wait(full_k(st), (kt >> 1) & 1);
+    for (int i = 1; i < n_tiles; ++i) {
+      const int kt = kt0 + i;
+      const int st = i & 1, prev = st ^ 1;
+      mbar_wait(full_k(st), (i >> 1) & 1);
       c.rescale_o();  // by the previous tile's factor, before its P·V lands
-      named_sync(1 + w);
+      my_turn();
       wgmma_fence();
       c.issue_s(q64, q16, k_tile(st));
       wgmma_commit();
-      mbar_wait(full_v(prev), ((kt - 1) >> 1) & 1);
+      mbar_wait(full_v(prev), ((i - 1) >> 1) & 1);
       c.issue_pv(v_tile(prev));
       wgmma_commit();
-      named_arrive(2 - w);
+      your_turn();
       wgmma_wait<1>();  // S of tile kt is in; P·V of tile kt − 1 may still run
       pin(c.s);
-      c.softmax(kt * BN, row0, col0, Sk, masked(kt), causal, scale_log2);
+      c.template softmax<SPAN>(kt * BN, pos0, col0, Sk, masked(kt), causal, window, scale_log2);
       wgmma_wait<0>();
       c.pin_o();
       pin(c.s);  // no conversion into p may start before P·V has read it
@@ -519,14 +575,16 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
     const int last = n_tiles - 1;
     c.rescale_o();
     mbar_wait(full_v(last & 1), (last >> 1) & 1);
-    named_sync(1 + w);
+    my_turn();
     wgmma_fence();
     c.issue_pv(v_tile(last & 1));
     wgmma_commit();
-    named_arrive(2 - w);
+    your_turn();
     wgmma_wait<0>();
     c.pin_o();
-    if (w == 0) named_sync(1);  // takes warpgroup 1's last arrival
+    if constexpr (NC == 2) {
+      if (w == 0) named_sync(1);  // takes warpgroup 1's last arrival
+    }
 
     // Epilogue: the row's l over its quad, acc / max(l, 1e−30), bf16 stores.
 #pragma unroll
@@ -590,32 +648,35 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int 
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int HD, bool SPAN>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk, int H, int KV,
-           float scale, int causal, cudaStream_t stream) {
+           float scale, int causal, int q_offset, int window, cudaStream_t stream) {
+  using S = Shape<HD>;
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  CUtensorMap maps[6];  // q, k, v (64-column boxes), then their 16-column boxes (hd 80)
+  // q, k, v with 64-column boxes, then their 16-column boxes (hd 16 and 80);
+  // an instance without one kind passes the other in its place, unread.
+  CUtensorMap maps[6];
   const void* ptrs[3] = {q, k, v};
-  const int seqs[3] = {Sq, Sk, Sk}, heads[3] = {H, KV, KV}, rows[3] = {BM, Shape<HD>::BN, Shape<HD>::BN};
+  const int seqs[3] = {Sq, Sk, Sk}, heads[3] = {H, KV, KV}, rows[3] = {S::BM, S::BN, S::BN};
   for (int i = 0; i < 3; ++i) {
-    if (!make_map(encode, &maps[i], ptrs[i], B, seqs[i], heads[i], HD, 64, rows[i], CU_TENSOR_MAP_SWIZZLE_128B))
+    if (S::Q::N64 && !make_map(encode, &maps[i], ptrs[i], B, seqs[i], heads[i], HD, 64, rows[i],
+                               CU_TENSOR_MAP_SWIZZLE_128B))
       return static_cast<int>(cudaErrorInvalidValue);
-    if (Shape<HD>::Q::N16) {
-      if (!make_map(encode, &maps[3 + i], ptrs[i], B, seqs[i], heads[i], HD, 16, rows[i],
-                    CU_TENSOR_MAP_SWIZZLE_32B))
-        return static_cast<int>(cudaErrorInvalidValue);
-    } else {
-      maps[3 + i] = maps[i];
-    }
+    if (S::Q::N16 && !make_map(encode, &maps[3 + i], ptrs[i], B, seqs[i], heads[i], HD, 16, rows[i],
+                               CU_TENSOR_MAP_SWIZZLE_32B))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (!S::Q::N64) maps[i] = maps[3 + i];
+    if (!S::Q::N16) maps[3 + i] = maps[i];
   }
-  constexpr int smem = Shape<HD>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_sm90_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  constexpr int smem = S::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_sm90_kernel<HD, SPAN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * H, (Sq + BM - 1) / BM);
-  flash_fwd_sm90_kernel<HD><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid(B * H, (Sq + S::BM - 1) / S::BM);
+  flash_fwd_sm90_kernel<HD, SPAN><<<grid, S::THREADS, smem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], static_cast<__nv_bfloat16*>(o), Sq, Sk, H, KV,
-      scale * 1.4426950408889634f, causal);
+      scale * 1.4426950408889634f, causal, q_offset, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -623,18 +684,30 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
 
 // Launches one bf16 forward pass on `stream`.  q, o: (B, Sq, H, hd); k, v:
 // (B, Sk, KV, hd); all contiguous and 16-byte aligned; KV divides H; Sk ≥ 1;
-// ceil(Sq / 128) ≤ 65535.  scale is the reference's 1/√hd rounded to fp32.
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for an
-// hd other than 64, 80, 128 or a tensor TMA cannot map,
-// cudaErrorNotSupported without libcuda's tensor-map encoder).
+// ceil(Sq / rows) ≤ 65535 (128 rows a block, 64 at hd > 128).  scale is the
+// reference's 1/√hd of the true head dim, rounded to fp32; q_offset is row
+// 0's position and window the sliding window (INT_MAX for none), both of the
+// causal mask.  Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for an hd that is not an instance or a tensor TMA
+// cannot map, cudaErrorNotSupported without libcuda's tensor-map encoder).
 extern "C" int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
-                              int H, int KV, int hd, float scale, int causal, void* stream) {
+                              int H, int KV, int hd, float scale, int causal, int q_offset, int window,
+                              void* stream) {
   if (B <= 0 || Sq <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool span = causal && (q_offset != 0 || window != 0x7fffffff);
+#define FLASH_SM90_CASE(HD)                                                                           \
+  case HD:                                                                                            \
+    return span ? launch<HD, true>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, q_offset, window, s) \
+                : launch<HD, false>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, q_offset, window, s);
   switch (hd) {
-    case 64: return launch<64>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, s);
-    case 80: return launch<80>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, s);
-    case 128: return launch<128>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, s);
+    FLASH_SM90_CASE(16)
+    FLASH_SM90_CASE(64)
+    FLASH_SM90_CASE(80)
+    FLASH_SM90_CASE(128)
+    FLASH_SM90_CASE(192)
+    FLASH_SM90_CASE(256)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef FLASH_SM90_CASE
 }

@@ -5,25 +5,37 @@ Counterpart of ``repro/kernels/flash_attention/flash.py`` (the Pallas
 ``_flash_kernel``, ``flash.py:38``).  All of them compute the chunked
 online-softmax recurrence of the reference's ``models/layers.py``
 ``causal_attention``: scores ``(q·kᵀ in fp32) · 1/√hd``, causal masking
-with the ``-1e30`` sentinel, running ``(acc, m, l)`` in fp32, ``p`` rounded
-to v's dtype before the P·V product, and ``acc / max(l, 1e-30)`` cast to
-q's dtype.
+with the ``-1e30`` sentinel (with the reference's query offset and sliding
+window: the query at row i sits at ``q_offset + i`` and sees key j iff
+``q_offset + i ≥ j`` and ``q_offset + i − j < window``), running
+``(acc, m, l)`` in fp32, ``p`` rounded to v's dtype before the P·V
+product, and ``acc / max(l, 1e-30)`` cast to q's dtype.
 
 * :func:`flash_fwd` launches one of two kernels, built from the checkout
   into one library at first call, on PyTorch's current stream, never
-  synchronising.  :func:`route` picks the kernel from the dtype alone:
+  synchronising.  :func:`route` picks the kernel from the dtype alone, for
+  every head dim from 1 to 256 (the reference's Pallas kernel takes any hd
+  and is sized for hd ≤ 256).  Each kernel has template instances at some
+  head dims (``INSTANCES``); the launcher zero-pads q, k and v of any other
+  hd to the next instance and slices the output, which is exact (a zero
+  column adds 0 to every q·k and gives a zero output column) and keeps the
+  true hd's scale.  The cost is the padded copies and the wider work
+  (hd 96 runs as 128 on the bf16 route, hd 40 as 64).  The two kernels:
 
   - ``"wgmma"`` (bf16, the model path): ``csrc/flash_fwd_sm90.cu``, on the
     H100's tensor cores.  A producer warpgroup copies Q, K and V by TMA
     from their native layouts into a 2-stage shared-memory ring; two
-    consumer warpgroups run Q·Kᵀ and P·V as ``wgmma`` (bf16 in, fp32
+    consumer warpgroups (one above hd 128, where O alone takes 96 or 128
+    registers a thread) run Q·Kᵀ and P·V as ``wgmma`` (bf16 in, fp32
     accumulate; P taken from registers) and the online softmax on the
     accumulators.  Its bound on the H100 is the tensor cores' bf16 rate
     (1,070 TFLOP/s at 1,980 MHz) for the 4·hd FLOPs and the MUFU rate
     (4.18·10¹² /s) for the exp of each visible (q, k) pair, equal at
     hd 64 (0.514 ms each at TinyLlama's 8 × 4,096 causal prefill) and far
     above the bytes; so each warpgroup runs its exps under its own
-    previous P·V and the two take turns on the tensor cores.
+    previous P·V and the two take turns on the tensor cores.  A query
+    offset or a window runs a second instance per head dim; the plain
+    causal instance keeps neither in its code.
   - ``"ffma"`` (fp32): ``csrc/flash_fwd.cu``, fp32 FFMA on the CUDA cores.
     Hopper's tensor cores take no fp32 operands, and TF32 would round the
     operands to 10-bit mantissas, against the reference's fp32 contract.
@@ -33,8 +45,7 @@ q's dtype.
 * :func:`flash_attention` is the wrapper: a kernel on CUDA tensors, the
   plain version on CPU tensors, never the one in place of the other.
 * :func:`flash_attention_plain` follows the reference's op sequence chunk
-  by chunk (it also serves ``layers.causal_attention`` on the CPU, window
-  and query offset included).
+  by chunk (it also serves ``layers.causal_attention`` on the CPU).
 
 k and v may carry fewer heads than q (GQA): query head h reads kv head
 ``h // (H // KV)``.  The kernels index it; the plain version expands k
@@ -43,23 +54,27 @@ and v as the reference's ``_expand_kv`` does (:func:`expand_kv`).
 from __future__ import annotations
 
 import ctypes
+import operator
 from pathlib import Path
 
 import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["NEG", "HEAD_DIMS", "ROUTES", "SOURCE", "SOURCE_SM90", "build", "expand_kv", "flash_fwd",
-           "flash_attention", "flash_attention_plain", "route"]
+__all__ = ["NEG", "MAX_HEAD_DIM", "INSTANCES", "ROUTES", "SOURCE", "SOURCE_SM90", "build", "expand_kv",
+           "flash_fwd", "flash_attention", "flash_attention_plain", "instance", "route"]
 
 NEG = -1e30  # large-finite: no inf − inf in the online softmax
-HEAD_DIMS = (64, 80, 128)
+MAX_HEAD_DIM = 256
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
 SOURCE_SM90 = Path(__file__).resolve().parent / "csrc" / "flash_fwd_sm90.cu"
 # route -> the kernel source it launches
 ROUTES = {"wgmma": SOURCE_SM90, "ffma": SOURCE}
+# route -> the head dims its kernel has template instances for
+INSTANCES = {"wgmma": (16, 64, 80, 128, 192, 256),
+             "ffma": (16, 32, 48, 64, 80, 96, 128, 160, 192, 256)}
 _MAX_GRID_Y = 65535
-_BLOCK_Q_SM90 = 128  # query rows per CTA of the wgmma kernel
+_INT_MAX = 2 ** 31 - 1
 
 _lib: ctypes.CDLL | None = None
 
@@ -70,9 +85,9 @@ def build() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load_library("flash_fwd", [SOURCE, SOURCE_SM90])
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, f, i, p]
+        lib.flash_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, f, i, i, i, p]
         lib.flash_fwd.restype = i
-        lib.flash_fwd_sm90.argtypes = [p, p, p, p, i, i, i, i, i, i, f, i, p]
+        lib.flash_fwd_sm90.argtypes = [p, p, p, p, i, i, i, i, i, i, f, i, i, i, p]
         lib.flash_fwd_sm90.restype = i
         _lib = lib
     return _lib
@@ -80,14 +95,27 @@ def build() -> ctypes.CDLL:
 
 def route(dtype: torch.dtype, hd: int) -> str:
     """The kernel that takes (dtype, head_dim): ``"wgmma"`` for bfloat16,
-    ``"ffma"`` for float32.  Raises on any other dtype or head_dim."""
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not supported; the kernels have {HEAD_DIMS}")
+    ``"ffma"`` for float32, for every head_dim from 1 to ``MAX_HEAD_DIM``.
+    Raises on any other dtype or head_dim."""
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {hd} not supported; the kernels take 1 to {MAX_HEAD_DIM}")
     if dtype == torch.bfloat16:
         return "wgmma"
     if dtype == torch.float32:
         return "ffma"
     raise ValueError(f"flash_fwd takes float32 or bfloat16, got {dtype}")
+
+
+def instance(which: str, hd: int) -> int:
+    """The head dim the kernel of route ``which`` runs for ``hd``: the
+    smallest of its ``INSTANCES`` that is ≥ hd (hd itself where it is one)."""
+    return next(i for i in INSTANCES[which] if i >= hd)
+
+
+def _block_rows(which: str, hd: int) -> int:
+    """Query rows per CTA: the wgmma kernel's 128 (64 above hd 128), the
+    ffma kernel's 64."""
+    return 128 if which == "wgmma" and instance(which, hd) <= 128 else 64
 
 
 def _check(q, k, v, out) -> None:
@@ -109,29 +137,53 @@ def _check(q, k, v, out) -> None:
         raise ValueError(f"{h} query heads do not divide into {k.shape[2]} kv heads")
     if k.shape[1] == 0:
         raise ValueError("k and v hold no keys")
-    if route(q.dtype, hd) == "ffma" and b * h > _MAX_GRID_Y:
+    which = route(q.dtype, hd)
+    if which == "ffma" and b * h > _MAX_GRID_Y:
         raise ValueError(f"B·H = {b * h} exceeds the grid's {_MAX_GRID_Y}")
-    if -(-q.shape[1] // _BLOCK_Q_SM90) > _MAX_GRID_Y:
+    if which == "wgmma" and -(-q.shape[1] // _block_rows(which, hd)) > _MAX_GRID_Y:
         raise ValueError(f"Sq = {q.shape[1]} exceeds the grid's {_MAX_GRID_Y} query blocks")
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
+def _mask_args(causal: bool, q_offset, window, sq: int, sk: int) -> tuple[int, int]:
+    """(q_offset, window) as the kernels take them: ints, INT_MAX for no
+    window, a negative window as 0 (both see no key).  Raises on a window
+    without the causal mask, as the plain version does, and on positions the
+    kernels' 32-bit arithmetic cannot hold."""
+    q_offset = operator.index(q_offset)
+    if window is not None and not causal:
+        raise ValueError("a window applies to causal attention only")
+    if abs(q_offset) + sq + sk >= _INT_MAX:
+        raise ValueError(f"|q_offset| + Sq + Sk = {abs(q_offset) + sq + sk} exceeds the kernels' int32 positions")
+    window = _INT_MAX if window is None else min(max(operator.index(window), 0), _INT_MAX)
+    return q_offset, window
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, *,
-              causal: bool = True) -> None:
+              causal: bool = True, q_offset: int = 0, window: int | None = None) -> None:
     """One launch: attention of q (B, Sq, H, hd) over k, v (B, Sk, KV, hd)
     into ``out`` (B, Sq, H, hd).  All contiguous, 16-byte aligned, one
-    dtype (float32 or bfloat16) on one CUDA device; hd ∈ ``HEAD_DIMS``.
-    The kernel is :func:`route`'s; a failed launch raises."""
+    dtype (float32 or bfloat16) on one CUDA device; 1 ≤ hd ≤ 256.
+    ``q_offset`` (q[0]'s position) and ``window`` shape the causal mask as
+    in ``layers.causal_attention``.  The kernel is :func:`route`'s, at
+    :func:`instance`'s head dim (q, k and v zero-padded to it where it is
+    not hd); a failed launch raises."""
     _check(q, k, v, out)
     b, sq, h, hd = q.shape
+    q_offset, window = _mask_args(causal, q_offset, window, sq, k.shape[1])
     if b == 0 or sq == 0:
         return
     which = route(q.dtype, hd)
+    inst = instance(which, hd)
+    dst = out
+    if inst != hd:
+        q, k, v = (torch.nn.functional.pad(t, (0, inst - hd)) for t in (q, k, v))
+        dst = torch.empty_like(q)
     lib = build()
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-    shape = (b, sq, k.shape[1], h, k.shape[2], hd, 1.0 / (hd ** 0.5), int(causal))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dst.data_ptr())
+    shape = (b, sq, k.shape[1], h, k.shape[2], inst, 1.0 / (hd ** 0.5), int(causal), q_offset, window)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         fn = lib.flash_fwd_sm90 if which == "wgmma" else lib.flash_fwd
@@ -140,6 +192,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tens
         raise RuntimeError(f"flash_fwd ({which}) launch failed: CUDA error {err}")
     flash_fwd.launches += 1
     flash_fwd.route_launches[which] += 1
+    if dst is not out:
+        out.copy_(dst[..., :hd])
 
 
 flash_fwd.launches = 0
@@ -151,16 +205,17 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                    q_offset: int = 0, window: int | None = None) -> torch.Tensor:
     """Forward attention, q (B, Sq, H, hd), k/v (B, Sk, KV, hd) → (B, Sq, H, hd)
-    in q's dtype.  CUDA tensors go through the kernel (or the call raises);
-    CPU tensors through :func:`flash_attention_plain`."""
+    in q's dtype, the causal mask shifted by ``q_offset`` and cut to a
+    sliding ``window``.  CUDA tensors go through the kernel (or the call
+    raises); CPU tensors through :func:`flash_attention_plain`."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal)
+        return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset, window=window)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    flash_fwd(q, k, v, out, causal=causal)
+    flash_fwd(q, k, v, out, causal=causal, q_offset=q_offset, window=window)
     return out
 
 

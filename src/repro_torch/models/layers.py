@@ -15,10 +15,9 @@ bf16 × bf16 → fp32 contraction (TF32 stays off, see
 
 ``causal_attention`` on a CUDA tensor runs the hand-written flash kernel
 (kernel 4, :func:`repro_torch.kernels.flash_attention.flash.flash_attention`)
-for full causal attention from position 0, which every shipped config
-uses.  A sliding window or a query offset has no kernel yet and raises on
-CUDA (``ROADMAP.md``, Queue 1); on the CPU every case runs the plain
-chunked recurrence.  The reference's ``_expand_kv`` is
+for every case the reference serves: any head dim up to 256, a sliding
+window, a query offset; on the CPU every case runs the plain chunked
+recurrence.  The reference's ``_expand_kv`` is
 :func:`repro_torch.kernels.flash_attention.flash.expand_kv` (the plain
 recurrence there needs it; the kernel indexes kv heads instead).
 """
@@ -81,16 +80,12 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, spec: At
                      q_offset: int = 0) -> torch.Tensor:
     """Causal attention, q (B, Sq, H, hd), k/v (B, Sk, KV, hd) → (B, Sq, H, hd).
 
-    CUDA: kernel 4 (``window is None`` and ``q_offset == 0``, else
-    ``NotImplementedError``).  CPU: the plain chunked recurrence over
-    ``spec.chunk`` keys at a time."""
+    CUDA: kernel 4, with ``spec.window`` and ``q_offset``.  CPU: the plain
+    chunked recurrence over ``spec.chunk`` keys at a time."""
     if q.device.type == "cpu":
         return F.flash_attention_plain(q, k, v, causal=True, chunk=spec.chunk,
                                        q_offset=q_offset, window=spec.window)
-    if spec.window is not None or q_offset != 0:
-        raise NotImplementedError(
-            "windowed or offset attention has no CUDA kernel yet (ROADMAP.md, Queue 1)")
-    return F.flash_attention(q, k, v, causal=True)
+    return F.flash_attention(q, k, v, causal=True, q_offset=q_offset, window=spec.window)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,

@@ -3,9 +3,11 @@
 
 The port's own copy of ``repro/obs/trace.py``: the same span and event
 names, record schema and API, ``start_span`` / ``bind`` for regions that
-cross a thread hop (the query engine's) included.  Left out: the lazy XLA profiler bridge
-(``enable(xla=True)`` opening a ``jax.profiler.TraceAnnotation`` per span),
-which has no counterpart here yet.
+cross a thread hop (the query engine's) included.  The profiler bridge is
+``enable(record_function=True)`` / ``capture(record_function=True)``, the
+counterpart of the reference's ``xla=True``: each span then also opens a
+``torch.profiler.record_function`` range of its name, so a
+``torch.profiler`` trace shows the spans around the kernels they launch.
 
 Design constraints (docs/api.md "Observability contract"):
 
@@ -91,6 +93,7 @@ class _State:
         self.lock = threading.Lock()
         self.events: list[dict] = []
         self.jsonl = None  # open file handle, or None
+        self.record_function = False  # the profiler bridge
 
 
 _STATE = _State()
@@ -102,17 +105,23 @@ def enabled() -> bool:
     return _STATE.enabled
 
 
-def enable(*, jsonl=None) -> None:
+def enable(*, jsonl=None, record_function: bool = False) -> None:
     """Turn tracing on.
 
-    jsonl — optional path; every event is additionally appended to it as
-            one JSON line at emit time (the durable export).  The
-            in-memory collector fills either way; :func:`drain` empties it.
+    jsonl           — optional path; every event is additionally appended to
+                      it as one JSON line at emit time (the durable export).
+                      The in-memory collector fills either way;
+                      :func:`drain` empties it.
+    record_function — the profiler bridge (the reference's ``xla=``): each
+                      span also opens a ``torch.profiler.record_function``
+                      range of its name, so it appears in a
+                      ``torch.profiler`` trace around what it launches.
     """
     with _STATE.lock:
         if _STATE.jsonl is not None:
             _STATE.jsonl.close()
         _STATE.jsonl = open(jsonl, "a") if jsonl is not None else None
+        _STATE.record_function = bool(record_function)
         _STATE.enabled = True
 
 
@@ -121,6 +130,7 @@ def disable() -> None:
     until :func:`drain`; the JSONL handle is closed."""
     with _STATE.lock:
         _STATE.enabled = False
+        _STATE.record_function = False
         if _STATE.jsonl is not None:
             _STATE.jsonl.close()
             _STATE.jsonl = None
@@ -141,13 +151,13 @@ def drain() -> list[dict]:
 
 
 @contextlib.contextmanager
-def capture(*, jsonl=None):
+def capture(*, jsonl=None, record_function: bool = False):
     """Test/bench-scoped tracing: enable, yield the live event list getter,
     disable and restore on exit.  Drains pre-existing events so the block
-    sees only its own."""
+    sees only its own.  ``record_function`` is :func:`enable`'s bridge."""
     prior_enabled = _STATE.enabled
     drain()
-    enable(jsonl=jsonl)
+    enable(jsonl=jsonl, record_function=record_function)
     try:
         yield events
     finally:
@@ -242,7 +252,7 @@ class Span:
 
     __slots__ = (
         "name", "attrs", "rid", "span_id", "parent_id",
-        "_t0", "_t_start", "_token", "_done", "status", "error",
+        "_t0", "_t_start", "_token", "_rf", "_done", "status", "error",
     )
 
     def __init__(self, name: str, rid: str | None, attrs: dict, parent_id: int | None = None):
@@ -256,10 +266,16 @@ class Span:
             else (frame.span_id if frame is not None else None)
         )
         self._token = None
+        self._rf = None
         self._done = False
         self.status = "ok"
         self.error = None
         self._t_start = time.time()
+        if _STATE.record_function:
+            from torch.profiler import record_function
+
+            self._rf = record_function(name)
+            self._rf.__enter__()
         self._t0 = time.monotonic()
 
     def set(self, **attrs) -> "Span":
@@ -291,6 +307,9 @@ class Span:
         if self._done:
             return
         self._done = True
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
+            self._rf = None
         if exc is not None:
             self.status = "error"
             self.error = exception_chain(exc)

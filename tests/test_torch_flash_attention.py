@@ -18,7 +18,12 @@ average) plus the output's rounding to bf16 (≤ 2^-8·max|v|).  The last
 tests hold ``chip_smoke.py``'s tighter per-entry bound for the card
 against other kv chunks, against an emulation of the tensor-core kernel's
 arithmetic and against emulated kernel faults.  The routing tests pin
-which kernel each dtype takes (``flash.route``).
+which kernel each dtype takes (``flash.route``) for every head dim from 1
+to 256, and the instance head dim the launcher pads to.  Head dims off the
+kernels' instances (24, 40, 96), sliding windows and query offsets (a
+continued prefill with Sk > Sq, and q_offset ≥ Sk, where rows may see no
+key at all) are held to the reference's ``causal_attention`` at the fp32
+tolerance above.
 """
 import numpy as np
 import pytest
@@ -174,7 +179,7 @@ def test_wrapper_on_cpu_runs_the_plain_version_and_never_launches():
     torch.testing.assert_close(got, F.flash_attention_plain(q, k, v), atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("hd", F.HEAD_DIMS)
+@pytest.mark.parametrize("hd", [1, 16, 40, 64, 80, 96, 128, 200, 256])
 def test_route_sends_bf16_to_the_tensor_cores_and_fp32_to_the_cuda_cores(hd):
     assert F.route(torch.bfloat16, hd) == "wgmma"
     assert F.route(torch.float32, hd) == "ffma"
@@ -182,8 +187,8 @@ def test_route_sends_bf16_to_the_tensor_cores_and_fp32_to_the_cuda_cores(hd):
     assert F.SOURCE_SM90.is_file() and F.SOURCE.is_file()
 
 
-@pytest.mark.parametrize("dtype,hd", [(torch.float16, 64), (torch.float64, 64), (torch.bfloat16, 32),
-                                      (torch.float32, 96), (torch.bfloat16, 256)], ids=str)
+@pytest.mark.parametrize("dtype,hd", [(torch.float16, 64), (torch.float64, 64), (torch.bfloat16, 0),
+                                      (torch.float32, 257), (torch.bfloat16, 512)], ids=str)
 def test_route_raises_on_other_dtypes_and_head_dims(dtype, hd):
     with pytest.raises(ValueError, match="head_dim|float32 or bfloat16"):
         F.route(dtype, hd)
@@ -204,14 +209,17 @@ def test_wrapper_on_cpu_leaves_every_route_counter_at_zero(dtype):
 
 
 def test_causal_attention_off_the_kernel_path_raises_off_cpu():
-    """A window or an offset has no kernel yet: off the CPU it raises
-    instead of falling back (meta tensors stand in for CUDA ones)."""
+    """A window and an offset take the kernel: off the CPU the call reaches
+    the launcher, which refuses anything but a CUDA tensor, and never falls
+    back to the plain version (meta tensors stand in for CUDA ones)."""
     q = torch.empty((1, 8, 4, 64), device="meta")
     k = torch.empty((1, 8, 2, 64), device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    before = F.flash_fwd.launches
+    with pytest.raises(ValueError, match="CUDA"):
         L.causal_attention(q, k, k, L.AttnSpec(4, 2, 64, 16, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="CUDA"):
         L.causal_attention(q, k, k, L.AttnSpec(4, 2, 64, 16, None), q_offset=8)
+    assert F.flash_fwd.launches == before
 
 
 def _load_script(name: str, rel: str):
@@ -233,34 +241,76 @@ def test_planted_faults_each_hit_the_kernel_source_once():
         assert text.count(old) == 1 and new != old, name
 
 
-def _tensor_core_arithmetic(q, k, v, causal, tile):
+def test_span_faults_each_hit_the_offset_and_window_instance_once():
+    """The planted faults of the instance for offsets and windows: each text
+    occurs once in the source, each fault names the cases it must fail, and
+    those cases hold an offset or a window (the instance they reach)."""
+    faults = _load_script("flash_planted_faults", "scripts/flash_planted_faults.py")
+    text = F.SOURCE_SM90.read_text()
+    assert len(faults.SPAN_FAULTS) == 3
+    for name, (old, new, cases) in faults.SPAN_FAULTS.items():
+        assert text.count(old) == 1 and new != old, name
+        assert cases and set(cases) <= set(faults.SPAN_CASES), name
+    for case, (*_, q_offset, window) in faults.SPAN_CASES.items():
+        assert q_offset != 0 or window is not None, case
+
+
+MASKED = -(2.0 ** 99)  # the wgmma kernel's masked raw score (flash_fwd_sm90.cu)
+INT_MAX = 2 ** 31 - 1
+
+
+def _key_tiles(q0, rows, sq, sk, bn, q_offset, window, causal):
+    """``key_tiles`` of csrc/flash_mask.cuh: (first tile, tile count) that the
+    query rows q0 .. min(q0 + rows, sq) − 1 walk."""
+    n = -(-sk // bn)
+    if not causal:
+        return 0, n
+    p_lo, p_hi = q_offset + q0, q_offset + min(q0 + rows, sq) - 1
+    if p_lo < 0 or window <= 0 or p_hi - window + 1 > sk - 1:
+        return 0, n
+    first = max(0, p_lo - window + 1) // bn
+    return first, min(p_hi, sk - 1) // bn - first + 1
+
+
+def _tensor_core_arithmetic(q, k, v, causal, tile, *, q_offset=0, window=None, block=128):
     """The wgmma kernel's arithmetic, emulated: scores as fp32 sums of the
-    exact bf16 products in another order (float64, rounded once), key tiles
-    of ``tile`` (128; 64 at hd 128), the running max in log2 units with the scale and log2(e) folded
-    into one multiply-add ahead of exp2, masked keys at −inf, l over the
-    fp32 p, p rounded to bf16 against the tile's own running max."""
+    exact bf16 products in another order (float64, rounded once), per query
+    block of ``block`` rows only the key tiles of ``tile`` keys (128; 64 at
+    hd > 80) that ``key_tiles`` walks, the running max in log2 units with the
+    scale and log2(e) folded into one multiply-add ahead of exp2, hidden keys
+    at MASKED with an offset or a window (−inf without), keys past Sk at
+    −inf, l over the fp32 p, p rounded to bf16 against the tile's own
+    running max."""
     b, sq, h, hd = q.shape
     sk = k.shape[1]
+    win = INT_MAX if window is None else max(window, 0)
+    hidden = MASKED if q_offset != 0 or window is not None else -torch.inf
     kx, vx = F.expand_kv(k, h // k.shape[2]), F.expand_kv(v, h // k.shape[2])
     raw = torch.einsum("bqhd,bkhd->bhqk", q.double(), kx.double()).float()
     c = torch.tensor(1.0 / hd ** 0.5, dtype=torch.float32) * torch.tensor(1.4426950408889634,
                                                                          dtype=torch.float32)
-    m = torch.full((b, h, sq), F.NEG)
-    l = torch.zeros((b, h, sq))
-    acc = torch.zeros((b, h, sq, hd))
-    rows = torch.arange(sq)[:, None]
-    for k0 in range(0, sk, tile):
-        s = raw[..., k0:k0 + tile]
-        if causal:
-            s = torch.where(k0 + torch.arange(s.shape[-1])[None, :] > rows, -torch.inf, s)
-        m_new = torch.maximum(m, s.amax(-1) * c)
-        corr = torch.exp2(m - m_new)
-        p = torch.exp2((s.double() * c.double() - m_new.double()[..., None]).float())
-        l = l * corr + p.sum(-1)
-        acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p.to(torch.bfloat16).float(),
-                                                   vx[:, k0:k0 + tile].float())
-        m = m_new
-    return (acc / torch.clamp(l, min=1e-30)[..., None]).transpose(1, 2).to(torch.bfloat16)
+    out = torch.empty((b, h, sq, hd))
+    for q0 in range(0, sq, block):
+        rows = slice(q0, min(q0 + block, sq))
+        pos = q_offset + torch.arange(q0, rows.stop)[:, None]
+        m = torch.full((b, h, rows.stop - q0), F.NEG)
+        l = torch.zeros((b, h, rows.stop - q0))
+        acc = torch.zeros((b, h, rows.stop - q0, hd))
+        first, count = _key_tiles(q0, block, sq, sk, tile, q_offset, win, causal)
+        for k0 in range(first * tile, (first + count) * tile, tile):
+            s = raw[..., rows, k0:k0 + tile]
+            if causal:
+                col = k0 + torch.arange(s.shape[-1])[None, :]
+                s = torch.where((col <= pos) & (pos - col < win), s, hidden)
+            m_new = torch.maximum(m, s.amax(-1) * c)
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2((s.double() * c.double() - m_new.double()[..., None]).float())
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p.to(torch.bfloat16).float(),
+                                                       vx[:, k0:k0 + tile].float())
+            m = m_new
+        out[:, :, rows] = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(torch.bfloat16)
 
 
 @pytest.mark.parametrize("hd,tile", [(64, 128), (128, 64)], ids=["hd64", "hd128"])
@@ -300,3 +350,104 @@ def test_smoke_tolerance_takes_other_chunks_and_rejects_wrong_kv_heads_and_dropp
     err = smoke.flash_error(dropped, F.flash_attention_plain(q, k, v, causal=False, chunk=64),
                             smoke.weighted_abs_v(q, k, v, causal=False))
     assert err["max_ratio"] > 1 and err["n_over"] > 0
+
+
+# --- every head dim, sliding windows, query offsets --------------------------
+
+# (sq, sk, q_offset, window): a causal prefill with a window, a continued
+# prefill (Sk > Sq, the queries the last Sq positions), rows past the keys
+# (q_offset ≥ Sk: every row sees all Sk keys), and the same with a window
+# short enough that the last rows see no key at all (the reference's
+# −1e30 then gives every key p = 1: the mean of v).
+MASK_CASES = [(32, 32, 0, 5), (16, 48, 32, None), (16, 48, 32, 7), (8, 32, 40, None), (8, 32, 40, 12)]
+MASK_IDS = ["window5", "continued", "continued_window7", "offset_past_sk", "offset_past_sk_empty_rows"]
+
+
+@pytest.mark.parametrize("hd", [16, 24, 40, 96, 256])
+@pytest.mark.parametrize("case", MASK_CASES, ids=MASK_IDS)
+def test_every_head_dim_window_and_offset_match_reference_layers(hd, case):
+    """layers.causal_attention and flash_attention_plain on CPU tensors
+    against the reference's layers.causal_attention, GQA 2:1, kv chunk 16."""
+    sq, sk, off, window = case
+    q, k, v = _qkv(hd + sq + off, 2, sq, sk, 4, 2, hd)
+    ref_spec = ref_layers.AttnSpec(4, 2, hd, 16, window)
+    want = np.asarray(ref_layers.causal_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                                  ref_spec, q_offset=off))
+    got = L.causal_attention(*_t(q, k, v), L.AttnSpec(4, 2, hd, 16, window), q_offset=off).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+    plain = F.flash_attention_plain(*_t(q, k, v), chunk=sk, q_offset=off, window=window).numpy()
+    np.testing.assert_allclose(plain, want, atol=ATOL, rtol=RTOL)
+
+
+def test_rows_that_see_no_key_get_the_mean_of_v():
+    """The reference's convention for a row whose every key is masked: all
+    scores sit at −1e30, so each key gets p = 1 and the row is the mean of v
+    (the kernels reproduce it; here the plain version, on its own inputs)."""
+    q, k, v = _t(*_qkv(3, 1, 4, 32, 2, 2, 16))
+    got = F.flash_attention_plain(q, k, v, chunk=16, q_offset=40, window=5)  # positions 40-43 see no key
+    torch.testing.assert_close(got, v.mean(dim=1, keepdim=True).expand_as(got), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("hd", [16, 24, 40, 96, 256])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_every_head_dim_matches_the_pallas_kernel(hd, causal):
+    """The reference's Pallas kernel in interpret mode (causal or full, no
+    offset, no window) against the port's wrapper on CPU tensors."""
+    q, k, v = _qkv(hd, 1, 64, 64, 2, 1, hd)
+    got = F.flash_attention(*_t(q, k, v), causal=causal).numpy()
+    np.testing.assert_allclose(got, _ref_flash(q, k, v, causal, 32, 32), atol=ATOL, rtol=RTOL)
+
+
+def test_route_raises_for_no_head_dim_from_1_to_256():
+    for dtype, which in ((torch.bfloat16, "wgmma"), (torch.float32, "ffma")):
+        for hd in range(1, F.MAX_HEAD_DIM + 1):
+            assert F.route(dtype, hd) == which
+            inst = F.instance(which, hd)
+            assert hd <= inst <= F.MAX_HEAD_DIM and inst in F.INSTANCES[which]
+            assert all(i < hd for i in F.INSTANCES[which] if i < inst)  # the smallest that fits
+
+
+@pytest.mark.parametrize("which", ["wgmma", "ffma"])
+def test_instances_cover_the_models_and_fit_the_kernels(which):
+    """Every instance is a multiple of 16 (whole 16-byte rows for TMA and the
+    float4 loads), the models' head dims 16, 64, 80 and 128 are instances
+    (no padding on their path), and the bf16 kernel's tile type admits each
+    (64·a + 16·b, b ≤ 1)."""
+    inst = F.INSTANCES[which]
+    assert inst == tuple(sorted(inst)) and inst[-1] == F.MAX_HEAD_DIM
+    assert all(i % 16 == 0 for i in inst)
+    assert {16, 64, 80, 128} <= set(inst)
+    if which == "wgmma":
+        assert all(i % 64 in (0, 16) for i in inst)
+
+
+def test_window_needs_the_causal_mask_and_offsets_fit_int32():
+    q, k, v = _t(*_qkv(0, 1, 8, 8, 2, 2, 16))
+    with pytest.raises(ValueError, match="causal"):
+        F._mask_args(False, 0, 4, 8, 8)
+    with pytest.raises(ValueError, match="int32"):
+        F._mask_args(True, 2 ** 31, None, 8, 8)
+    assert F._mask_args(True, 3, None, 8, 8) == (3, 2 ** 31 - 1)
+    assert F._mask_args(True, 0, -5, 8, 8) == (0, 0)  # sees no key, as window 0
+    with pytest.raises(ValueError, match="causal"):
+        F.flash_attention(q, k, v, causal=False, window=4)
+
+
+@pytest.mark.parametrize("hd,tile,block", [(64, 128, 128), (256, 64, 64)], ids=["hd64", "hd256"])
+@pytest.mark.parametrize("case", [(512, 512, 0, 100), (256, 768, 512, 300), (128, 300, 400, None),
+                                  (128, 300, 400, 120)],
+                         ids=["window100", "continued_window300", "offset_past_sk", "offset_empty_rows"])
+def test_smoke_tolerance_takes_the_windowed_tensor_core_arithmetic(hd, tile, block, case):
+    """The wgmma kernel's masking with a window and an offset, emulated
+    (only the key tiles key_tiles walks, MASKED for hidden keys, −inf past
+    Sk): held by chip_smoke's bf16 bound to the plain version at chunk 64
+    and to the plain version in float64, rows that see no key included."""
+    smoke = _load_script("chip_smoke", "chip_smoke.py")
+    sq, sk, off, window = case
+    q, k, v = (x.to(torch.bfloat16) for x in _t(*_qkv(hd + sq, 1, sq, sk, 4, 2, hd)))
+    got = _tensor_core_arithmetic(q, k, v, True, tile, q_offset=off, window=window, block=block)
+    abs_v = smoke.weighted_abs_v(q, k, v, causal=True, q_offset=off, window=window)
+    want = F.flash_attention_plain(q, k, v, chunk=64 if sk % 64 == 0 else sk, q_offset=off, window=window)
+    assert smoke.flash_error(got, want, abs_v)["max_ratio"] <= 1
+    want64 = F.flash_attention_plain(q.double(), k.double(), v.double(), chunk=sk, q_offset=off, window=window)
+    assert smoke.flash_error(got, want64, abs_v, exact=True)["max_ratio"] <= 1

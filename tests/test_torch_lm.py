@@ -137,6 +137,36 @@ def test_prefill_and_forward_match_reference(arch):
                                atol=ATOL, rtol=RTOL)
 
 
+@pytest.mark.parametrize("window", [4, 12, 40], ids=["window4", "window12", "window40"])
+def test_windowed_prefill_matches_reference(window):
+    """A smoke-size sliding-window config (the reference's ``cfg.window``,
+    beyond its chunk of 16 and beyond the 32 prompt tokens): the port's and
+    the reference's prefill on the same parameters."""
+    ref_cfg, params, cfg, model = _pair("tinyllama-1.1b")
+    ref_w = dataclasses.replace(ref_cfg, window=window)
+    cfg_w = dataclasses.replace(cfg, window=window)
+    assert interop.lm_config_from_dict(dataclasses.asdict(ref_w)) == cfg_w
+    toks = _tokens(9, 2, 32, cfg.vocab)
+    want = np.asarray(jax.jit(functools.partial(ref_lm.prefill_step, cfg=ref_w))(params, toks))
+    got = T.prefill_step(model, toks, cfg_w).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+    unwindowed = T.prefill_step(model, toks, cfg).numpy()
+    assert np.array_equal(got, unwindowed) == (window >= 32)  # a window past the prompt changes nothing
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_smoke_config_head_dim_16_has_a_kernel_instance(arch):
+    """The smoke configs run head dim 64 / 4 = 16, which both kernel-4
+    routes take as a template instance (no padding on the smoke path)."""
+    from repro_torch.kernels.flash_attention import flash as F
+
+    cfg = base.smoke_lm_config(base.load_arch(arch).config)
+    assert cfg.head_dim == 16
+    for dtype in (torch.float32, torch.bfloat16):
+        which = F.route(dtype, cfg.head_dim)
+        assert F.instance(which, cfg.head_dim) == 16
+
+
 def _decode_both(ref_cfg, params, cfg, model, toks, seq_len):
     """N_STEPS serve_steps on both sides, feeding the prompt's tokens."""
     step = jax.jit(functools.partial(ref_lm.serve_step, cfg=ref_cfg))
