@@ -167,10 +167,27 @@ the seed):
      bf16 route); then smoke_lm_config(TinyLlama) (2 layers, 4/2 heads of
      16, fp32) at 2 × 512 through the fp32 route (2 launches), its logits
      within 1e-4 relative L2 of the same model in float64;
+  14b. MoE: OLMoE-1B-7B at full width and depth (16 layers, d 2,048, 16/16
+     heads of 128, 64 experts of d_ff 1,024, top 8, vocab 50,304, bf16,
+     6.92 B parameters, random weights): prefill_step at 1 × 512 against
+     the same weights in float64, walked one layer's weights at a time on
+     the bf16 prefill's routing (every expert choice imposed, gates and the
+     rest recomputed; the routes float64 would have flipped counted),
+     within √R·2⁻⁸ with R = 17 per MoE layer; at 8 × 4,096 and 1 × 32,768
+     (16 launches each, all on the bf16 route; wall time, tokens/s, peak
+     memory, mean aux loss and dropped fraction); one more (uncounted)
+     1 × 4,096 prefill with every kernel-4 call held entry by entry against
+     the plain version; serve_step (dense-expert decode) at batch 8 with a
+     32,768-slot cache: a 64-token prompt fed one token at a time, then 32
+     greedy tokens, the last prompt logits against prefill_step's on a copy
+     of the config that cannot drop (capacity factor E / top_k); then
+     smoke_lm_config(Grok-1-314B) (2 layers, 4/2 heads of 16, 4 experts,
+     top 2, fp32) at 2 × 512 through the fp32 route, within 1e-4 of its
+     float64 copy on its own routing;
   15. CUDA-event times of kernel 4 at TinyLlama's (8, 4,096) and
      (1, 32,768), 32 query heads over 4 kv heads of 64, at (1, 8,192) with
-     StableLM-3B's 32/32 heads of 80 and DeepSeek-67B's 64/8 of 128, causal
-     bf16, then TinyLlama's (1, 32,768) with a 4,096 window (against the
+     StableLM-3B's 32/32 heads of 80 and DeepSeek-67B's 64/8 of 128, at
+     OLMoE-1B-7B's (8, 4,096) with 16/16 heads of 128, causal bf16, then TinyLlama's (1, 32,768) with a 4,096 window (against the
      causal call) and the smoke configs' heads (8, 4,096, 4/2 of 16, fp32),
      with its bound, its plain version and scaled_dot_product_attention as
      a yardstick (flash backend, causal; for the two new shapes the
@@ -179,8 +196,8 @@ the seed):
 
 Each main path (phases 4-6: set_distance; 6b, 6c and 6d, each its own;
 phase 7b's two-sweep call; phase 8: search; phases 10 and 10b:
-search_batch; 10c: shards=1; phase 11: the served paths; phase 14: each
-prefill_step and the decode loop)
+search_batch; 10c: shards=1; phase 11: the served paths; phases 14 and
+14b: each prefill_step and each decode loop)
 runs with the kernels' launch counters set to 0 just before it and read
 just after; launches made only to compare a kernel with its plain version
 are taken back out.
@@ -338,7 +355,8 @@ FLASH_CASES = (
     (1, 200, 1000, 8, 2, 64, "float32", True, 1100, 150),
 )
 # Phase 15's timed shapes (B, S, H, KV, hd, dtype, window), causal:
-# TinyLlama's first, then StableLM-3B's and DeepSeek-67B's heads, then
+# TinyLlama's first, then StableLM-3B's, DeepSeek-67B's and OLMoE-1B-7B's
+# heads (MHA, 16 of 128, at its prefill shape 8 × 4,096), then
 # TinyLlama at 32,768 with a 4,096 window and the smoke configs' heads (4/2
 # of 16, fp32 as the smoke configs run).
 FLASH_TIMES = (
@@ -346,11 +364,23 @@ FLASH_TIMES = (
     (1, 32_768, 32, 4, 64, "bfloat16", None),
     (1, 8_192, 32, 32, 80, "bfloat16", None),
     (1, 8_192, 64, 8, 128, "bfloat16", None),
+    (8, 4_096, 16, 16, 128, "bfloat16", None),
     (1, 32_768, 32, 4, 64, "bfloat16", 4_096),
     (8, 4_096, 4, 2, 16, "float32", None),
 )
 # Phase 14's windowed prefill: TinyLlama with this sliding window at 1 × 32,768.
 LM_WINDOW = 4_096
+# Phase 14b: OLMoE-1B-7B (16 layers, d 2,048, 16/16 heads of 128, 64 experts
+# of d_ff 1,024, top 8, vocab 50,304, bf16) at full width and depth, random
+# weights from the seed: prefill at PREFILL_SHAPES, an uncounted held
+# prefill at MOE_HELD_SHAPE, the float64 check at F64_PROMPT tokens, decode
+# at batch MOE_DECODE_BATCH with a DECODE_CACHE-slot cache (decode_32k's
+# batch 128 would need a 550 GB cache; 8 need 34.4 GB); then Grok-1's smoke
+# config (Grok-1-314B does not fit on one card).
+MOE_ARCH = "olmoe-1b-7b"
+MOE_SMOKE_ARCH = "grok-1-314b"
+MOE_HELD_SHAPE = (1, 4_096)
+MOE_DECODE_BATCH = 8
 # Phase 7b: the paper's exact baselines.  Two-sweep against the fused call at
 # phase 7's 65,536² (N_VARIANT); the early break on Random Clouds at
 # N_EARLYBREAK² on the CPU and on the card.
@@ -2554,6 +2584,27 @@ def flash_replaced(fn):
         F.flash_attention = wrapper
 
 
+@contextlib.contextmanager
+def flash_held(chunk: int):
+    """Inside the block every kernel-4 call runs uncounted and is held entry
+    by entry to the plain version (kv chunks of ``chunk``); yields the list
+    of the calls' errors."""
+    from repro_torch.kernels.flash_attention import flash as F
+
+    held = []
+
+    def checked(q, k, v, causal=True, **mask):
+        got = wrapper(q, k, v, causal=causal, **mask)
+        e = flash_error(got, F.flash_attention_plain(q, k, v, causal=causal, chunk=chunk, **mask),
+                        weighted_abs_v(q, k, v, causal=causal, **mask))
+        assert e["max_ratio"] <= 1, ("held prefill call", len(held), e)
+        held.append({"q": list(q.shape), "k": list(k.shape), **e})
+        return got
+
+    with uncounted(), flash_replaced(checked) as wrapper:
+        yield held
+
+
 def timed_prefill(model, tokens, cfg) -> tuple:
     """(logits, wall seconds, kernel-4 launches) of one counted prefill_step;
     every launch must take the route of the config's dtype and head dim
@@ -2634,17 +2685,7 @@ def phase_lm(seed: int) -> dict:
         torch.cuda.empty_cache()
 
     # The first shape once more, uncounted, every kernel-4 call held to the plain version.
-    held = []
-
-    def checked(q, k, v, causal=True, **mask):
-        got = wrapper(q, k, v, causal=causal, **mask)
-        e = flash_error(got, F.flash_attention_plain(q, k, v, causal=causal, chunk=cfg.attn_chunk, **mask),
-                        weighted_abs_v(q, k, v, causal=causal, **mask))
-        assert e["max_ratio"] <= 1, ("held prefill call", len(held), e)
-        held.append({"q": list(q.shape), "k": list(k.shape), **e})
-        return got
-
-    with uncounted(), flash_replaced(checked) as wrapper:
+    with flash_held(cfg.attn_chunk) as held:
         again = T.prefill_step(model, held_tokens, cfg)
     assert len(held) == cfg.n_layers, len(held)
     out["held_logits_equal"] = bool(torch.equal(again, held_logits))
@@ -2727,6 +2768,236 @@ def phase_lm(seed: int) -> dict:
     del model_s, model_s64
     torch.cuda.empty_cache()
     emit({"phase": "lm", **{k: v for k, v in out.items() if k != "held"}, "held": out["held"]})
+    return out
+
+
+def bf16_moe_logit_tolerance(n_layers: int) -> float:
+    """:func:`bf16_logit_tolerance` for MoE layers: the FFN's two roundings
+    (SwiGLU's h, the down product) become five (the dispatched tokens xd,
+    h, the expert outputs y, the bf16 combine weights and the block's output
+    cast), so R counts 17 per layer and 3 for the final norm."""
+    return (17 * n_layers + 3) ** 0.5 * 2.0 ** -8
+
+
+@contextlib.contextmanager
+def moe_observed(impose=None):
+    """Inside the block every ``layers.moe_block_routed`` call, which each
+    ``moe_block`` makes (call i is layer i of one forward), records its
+    metrics and the (k, G, S) experts it routed to.  With ``impose`` (one routing per layer) call i takes
+    ``impose[i]`` in place of its own argmaxes and records, as ``free``,
+    what they would have chosen."""
+    from repro_torch.models import layers as L
+
+    routed = L.moe_block_routed
+    calls = []
+
+    def observed(*args, experts=None, **kw):
+        rec = {}
+        if impose is not None:
+            rec["free"] = routed(*args, **kw)[2]
+            experts = impose[len(calls)]
+        out, rec["metrics"], rec["experts"] = routed(*args, experts=experts, **kw)
+        calls.append(rec)
+        return out, rec["metrics"], rec["experts"]
+
+    L.moe_block_routed = observed
+    try:
+        yield calls
+    finally:
+        L.moe_block_routed = routed
+
+
+def moe_means(calls) -> dict:
+    """Mean aux loss and dropped fraction over one forward's MoE layers."""
+    import torch
+
+    return {"aux_loss": float(torch.stack([c["metrics"].aux_loss for c in calls]).mean()),
+            "dropped_frac": float(torch.stack([c["metrics"].dropped_frac for c in calls]).mean())}
+
+
+def prefill_walk64(model, tokens, cfg):
+    """``prefill_step``'s logits for ``model``'s weights in float64 through
+    the plain functions, one layer's weights upcast at a time: a float64
+    copy of OLMoE (55 GB) would not fit beside the bf16 model."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash as F
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    cfg64 = dataclasses.replace(cfg, dtype=torch.float64)
+
+    def plain(q, k, v, causal=True, **mask):
+        return F.flash_attention_plain(q, k, v, causal=causal, chunk=cfg.attn_chunk, **mask)
+
+    with torch.no_grad(), uncounted(), flash_replaced(plain):
+        x = T._embed(model, tokens, cfg64)
+        positions = torch.arange(tokens.shape[1], device=x.device)
+        for i in range(cfg.n_layers):
+            lp = {n: p.double() for n, p in T._layer(model, i).items()}
+            x = T._layer_fwd(cfg64, x, lp, positions)[0]
+            del lp
+        x = L.rmsnorm(x, model.final_norm.double(), cfg.norm_eps)
+        return L.matmul_wide(x[:, -1], model.out.double())
+
+
+def float64_check(model, tokens, cfg, logits, calls, tol: float) -> dict:
+    """The bf16 (or fp32) prefill's logits against :func:`prefill_walk64` on
+    the routing that prefill took (``calls`` of :func:`moe_observed`): a
+    route that rounding flips is another computation, not an error, so the
+    float64 model takes the same expert at each choice step and recomputes
+    the gates and the rest.  Counts the (layer, token) routes whose expert
+    set float64's own argmaxes would have changed."""
+    import torch
+
+    with moe_observed(impose=[c["experts"] for c in calls]) as calls64:
+        logits64 = prefill_walk64(model, tokens, cfg)
+    err = rel_l2(logits, logits64)
+    assert err <= tol, ("prefill vs float64 on its routing", err, tol)
+    flipped = sum(int((c["free"].sort(0).values != c["experts"].sort(0).values).any(0).sum())
+                  for c in calls64)
+    return {"tokens": int(tokens.numel()), "rel_l2": err, "tol": tol,
+            "argmax_equal": bool(torch.equal(logits.argmax(-1), logits64.argmax(-1))),
+            "routes": cfg.n_layers * int(tokens.numel()), "flipped_routes": flipped,
+            "flipped_choices": sum(int((c["free"] != c["experts"]).sum()) for c in calls64)}
+
+
+def phase_moe(seed: int) -> dict:
+    """Phase 14b: OLMoE-1B-7B serving at full size (GShard ``moe_block`` in
+    prefill, ``moe_dense_decode`` in decode, kernel 4 in every prefill
+    layer), then Grok-1's smoke config."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import load_arch, smoke_lm_config
+    from repro_torch.data import synth
+    from repro_torch.data.pointclouds import make_generator
+    from repro_torch.models import transformer as T
+
+    cfg = load_arch(MOE_ARCH).config
+    gen = make_generator(seed + 16, DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = T.init_lm_params(gen, cfg)
+    torch.cuda.synchronize()
+    assert model.layers["router"].dtype == torch.float32 and model.layers["wi_gate"].dtype == cfg.dtype
+    out = {"arch": MOE_ARCH, "params_billions": cfg.params_billions(),
+           "active_params_billions": cfg.active_params_billions(),
+           "param_gb": sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9,
+           "init_s": time.perf_counter() - t0, "launches": 0, "route_launches": {"wgmma": 0, "ffma": 0}}
+    tol = bf16_moe_logit_tolerance(cfg.n_layers)
+
+    # 1 × 512 against the float64 model on the bf16 path's routing; lm_forward's
+    # aux loss is the mean of the layers' own.
+    prompt = synth.lm_batch(gen, cfg, 1, F64_PROMPT)["tokens"][:, :F64_PROMPT]
+    with moe_observed() as calls:
+        logits, dt, n = timed_prefill(model, prompt, cfg)
+    assert len(calls) == cfg.n_layers, len(calls)
+    out["launches"] += n
+    out["route_launches"]["wgmma"] += n
+    means = moe_means(calls)
+    with uncounted():
+        _, aux = T.lm_forward(model, prompt, cfg)
+    assert abs(float(aux) - means["aux_loss"]) <= 1e-6 * abs(means["aux_loss"]), (float(aux), means)
+    out["float64"] = {**float64_check(model, prompt, cfg, logits, calls, tol), "wall_s": dt, **means,
+                      "lm_forward_aux_loss": float(aux)}
+    emit({"phase": "moe_float64", **out["float64"]})
+
+    # Counted prefills at the two cut prefill_32k shapes.
+    out["prefill"] = []
+    for b, s in PREFILL_SHAPES:
+        tokens = synth.lm_batch(gen, cfg, b, s)["tokens"][:, :s]
+        torch.cuda.reset_peak_memory_stats()
+        with moe_observed() as calls:
+            logits, dt, n = timed_prefill(model, tokens, cfg)
+        out["launches"] += n
+        out["route_launches"]["wgmma"] += n
+        out["prefill"].append({"batch": b, "seq": s, "wall_s": dt, "tokens_per_s": b * s / dt,
+                               "launches": n, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                               **moe_means(calls)})
+        emit({"phase": "moe_prefill", **out["prefill"][-1]})
+        del tokens, logits, calls
+        torch.cuda.empty_cache()
+
+    # One more prefill, uncounted, every kernel-4 call held to the plain version.
+    b, s = MOE_HELD_SHAPE
+    tokens = synth.lm_batch(gen, cfg, b, s)["tokens"][:, :s]
+    with flash_held(cfg.attn_chunk) as held:
+        T.prefill_step(model, tokens, cfg)
+    assert len(held) == cfg.n_layers, len(held)
+    out["held"] = held_summary(f"OLMoE prefill {b} x {s}", held)
+    del tokens
+    torch.cuda.empty_cache()
+
+    # Decode: a 64-token prompt fed one token at a time, then greedy tokens.
+    b = MOE_DECODE_BATCH
+    prompt = synth.lm_batch(gen, cfg, b, DECODE_PROMPT)["tokens"][:, :DECODE_PROMPT]
+    torch.cuda.reset_peak_memory_stats()
+    cache = T.init_kv_cache(cfg, b, DECODE_CACHE, device=DEVICE)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(DECODE_PROMPT):
+        step_logits, nxt, cache = T.serve_step(model, cache, prompt[:, i], cfg)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    generated = []
+    for _ in range(DECODE_NEW):
+        generated.append(nxt)
+        _, nxt, cache = T.serve_step(model, cache, nxt, cfg)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    assert sum(counts().values()) == 0, counts()  # decode attention and the dense experts are plain
+    assert int(cache.length) == DECODE_PROMPT + DECODE_NEW
+    tokens = torch.stack(generated, 1)
+    assert tokens.shape == (b, DECODE_NEW) and int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab
+    decode_peak = torch.cuda.max_memory_allocated() / 1e9
+    del cache
+    torch.cuda.empty_cache()
+    # Decode runs every expert, so only a prefill that cannot drop computes
+    # the same: capacity E / top_k makes each expert's slots the group size.
+    cfg_nd = dataclasses.replace(cfg, capacity_factor=cfg.moe_experts / cfg.moe_top_k)
+    with moe_observed() as calls:
+        logits = T.prefill_step(model, prompt, cfg_nd)
+    assert all(float(c["metrics"].dropped_frac) == 0.0 for c in calls)
+    out["launches"] += counts()["flash_fwd"]
+    for r, n in route_counts().items():
+        out["route_launches"][r] += n
+    err = rel_l2(step_logits, logits)
+    assert err <= 2 * tol, ("decode vs no-drop prefill logits", err, 2 * tol)
+    with uncounted(), moe_observed() as calls:
+        T.prefill_step(model, prompt, cfg)
+    out["decode"] = {"batch": b, "cache": DECODE_CACHE, "prompt": DECODE_PROMPT,
+                     "new_tokens": DECODE_NEW, "prompt_fill_s": fill_s,
+                     "ms_per_step": gen_s / DECODE_NEW * 1e3, "tokens_per_s": b * DECODE_NEW / gen_s,
+                     "peak_gb": decode_peak, "vs_prefill_rel_l2": err, "tol": 2 * tol,
+                     "vs_prefill_capacity_factor": cfg_nd.capacity_factor,
+                     "argmax_agree": float((step_logits.argmax(-1) == logits.argmax(-1)).float().mean()),
+                     "default_cf_prompt_dropped_frac": moe_means(calls)["dropped_frac"]}
+    emit({"phase": "moe_decode", **out["decode"]})
+    del model, prompt, logits, step_logits, calls
+    torch.cuda.empty_cache()
+
+    # Grok-1's smoke config (2 layers, 4/2 heads of 16, 4 experts, top 2,
+    # fp32): kernel 4's fp32 route, against float64 on its own routing.
+    cfg_g = smoke_lm_config(load_arch(MOE_SMOKE_ARCH).config)
+    model_g = T.init_lm_params(gen, cfg_g)
+    prompt = synth.lm_batch(gen, cfg_g, 2, F64_PROMPT)["tokens"][:, :F64_PROMPT]
+    with moe_observed() as calls:
+        logits, dt, n = timed_prefill(model_g, prompt, cfg_g)
+    out["launches"] += n
+    out["route_launches"]["ffma"] += n
+    out["smoke"] = {"config": f"smoke_lm_config({MOE_SMOKE_ARCH})", "head_dim": cfg_g.head_dim,
+                    "experts": cfg_g.moe_experts, "top_k": cfg_g.moe_top_k, "dtype": str(cfg_g.dtype),
+                    "batch": 2, "launches": n, "wall_s": dt, **moe_means(calls),
+                    "float64": float64_check(model_g, prompt, cfg_g, logits, calls, FP32_LOGIT_TOL)}
+    del model_g
+    torch.cuda.empty_cache()
+    emit({"phase": "moe", **{k: v for k, v in out.items() if k != "held"}, "held": out["held"]})
     return out
 
 
@@ -2967,6 +3238,15 @@ def main() -> int:
     assert lm["route_launches"] == {"wgmma": lm["launches"] - smoke_n, "ffma": smoke_n}, lm["route_launches"]
     emit({"phase": "main_path", "path": "lm_serve", "launches": {"flash_fwd": lm["launches"]},
           "route_launches": lm["route_launches"], "wall_s": time.perf_counter() - t0})
+    # Main path 6: MoE LM serving, OLMoE-1B-7B prefill and decode, then Grok-1's
+    # smoke config (counted per prefill_step call and over the decode loop).
+    t0 = time.perf_counter()
+    moe = phase_moe(args.seed)
+    smoke_n = moe["smoke"]["launches"]
+    assert smoke_n == 2, moe["smoke"]
+    assert moe["route_launches"] == {"wgmma": moe["launches"] - smoke_n, "ffma": smoke_n}, moe["route_launches"]
+    emit({"phase": "main_path", "path": "moe_serve", "launches": {"flash_fwd": moe["launches"]},
+          "route_launches": moe["route_launches"], "wall_s": time.perf_counter() - t0})
     rows4 = phase_times_flash(args.seed, env)
 
     def total(name):
@@ -2982,12 +3262,12 @@ def main() -> int:
                      total("batched_minscan"), max_err2, rows2, held2),
         kernel_entry("multiquery_minscan", "cuda", KERNEL3_SOURCE, TPU_KERNEL3,
                      total("multiquery_minscan"), max_err3, rows3, held3),
-        {**kernel_entry("flash_fwd", "cuda", KERNEL4_SOURCE, TPU_KERNEL4, lm["launches"], max_err4, rows4,
-                        (lm["held"],)),
+        {**kernel_entry("flash_fwd", "cuda", KERNEL4_SOURCE, TPU_KERNEL4, lm["launches"] + moe["launches"],
+                        max_err4, rows4, (lm["held"], moe["held"])),
          "routes": {"wgmma": {"dtype": "bfloat16", "source": KERNEL4_SOURCE, "replaces": TPU_KERNEL4,
-                              "launches": lm["route_launches"]["wgmma"]},
+                              "launches": lm["route_launches"]["wgmma"] + moe["route_launches"]["wgmma"]},
                     "ffma": {"dtype": "float32", "source": KERNEL4_FP32_SOURCE, "replaces": TPU_KERNEL4,
-                             "launches": lm["route_launches"]["ffma"]}}},
+                             "launches": lm["route_launches"]["ffma"] + moe["route_launches"]["ffma"]}}},
     ]})
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
     print(smi("name,power.limit"), flush=True)

@@ -4,7 +4,7 @@ Counterpart of the LM part of ``repro/configs/base.py``.  Every ported
 architecture is a module ``repro_torch/configs/<id>.py`` exporting
 ``CONFIG`` (the reference's hyperparameters, word for word) and ``SHAPES``;
 ``registry()`` maps arch-id → ``ArchSpec`` over the ported ones (the dense
-LMs; the MoE configs, GNN and recsys wait with their models).
+and MoE LMs; GNN and recsys wait with their models).
 
 ``LMConfig.dtype`` is a ``torch.dtype`` (bf16 by default, fp32 in
 ``smoke_lm_config``).  The fields that only the reference's mesh and jit
@@ -56,7 +56,7 @@ LM_SHAPES = (
 
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
-    """Decoder-only transformer LM, GQA attention (the port serves dense ones)."""
+    """Decoder-only transformer LM (dense or MoE), GQA attention."""
 
     name: str
     n_layers: int
@@ -119,6 +119,8 @@ _ARCH_MODULES = {
     "stablelm-3b": "stablelm_3b",
     "deepseek-67b": "deepseek_67b",
     "tinyllama-1.1b": "tinyllama_1_1b",
+    "grok-1-314b": "grok1_314b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
 }
 
 

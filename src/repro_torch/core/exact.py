@@ -44,6 +44,7 @@ __all__ = [
     "fused_min_sqdists_tiled",
     "hausdorff_dense",
     "hausdorff_fused_tiled",
+    "hausdorff_tiled",
     "hausdorff_twosweep_tiled",
     "hausdorff_earlybreak",
 ]
@@ -207,6 +208,13 @@ def hausdorff_fused_tiled(
         block_a=block_a, block_b=block_b, prune_projs=prune_projs,
     )
     return torch.maximum(finalize_mins(min_a, valid_a), finalize_mins(min_b, valid_b))
+
+
+def hausdorff_tiled(a, b, *, valid_a=None, valid_b=None, block: int = 2048) -> torch.Tensor:
+    """Undirected H(A,B), tiled: the fused single-pass scan with square blocks."""
+    return hausdorff_fused_tiled(
+        a, b, valid_a=valid_a, valid_b=valid_b, block_a=block, block_b=block
+    )
 
 
 def hausdorff_twosweep_tiled(a, b, *, valid_a=None, valid_b=None, block: int = 2048) -> torch.Tensor:

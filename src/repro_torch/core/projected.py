@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["hd_1d", "projected_hd"]
+__all__ = ["directed_hd_1d", "hd_1d", "projected_hd"]
 
 
 def _directed_sorted(pa: torch.Tensor, pb_sorted: torch.Tensor) -> torch.Tensor:
@@ -20,6 +20,11 @@ def _directed_sorted(pa: torch.Tensor, pb_sorted: torch.Tensor) -> torch.Tensor:
     right = torch.gather(pb_sorted, -1, torch.clamp(pos, 0, n_b - 1))
     nearest = torch.minimum((pa - left).abs(), (pa - right).abs())
     return nearest.amax(dim=-1)
+
+
+def directed_hd_1d(pa: torch.Tensor, pb: torch.Tensor) -> torch.Tensor:
+    """max_i min_j |pa_i − pb_j| along the last axis (pb need not be sorted)."""
+    return _directed_sorted(pa, torch.sort(pb, dim=-1).values)
 
 
 def hd_1d(pa: torch.Tensor, pb: torch.Tensor) -> torch.Tensor:

@@ -25,6 +25,7 @@ __all__ = [
     "gaussian_mixture_pca",
     "higgs_like",
     "make_generator",
+    "make_dataset",
     "clustered_sets",
 ]
 
@@ -79,6 +80,17 @@ def higgs_like(gen: torch.Generator, n_a: int, n_b: int, *, d: int = 28, dtype=t
     shift[: d // 4] = 0.8
     b = torch.randn((n_b, d), generator=gen, device=dev) @ mixing * 1.15 + shift
     return a.to(dtype), b.to(dtype)
+
+
+def make_dataset(name: str, gen: torch.Generator, n_a: int, n_b: int, d: int, **kw):
+    """Dataset factory used by benchmarks: 'random' | 'image' | 'higgs'."""
+    if name == "random":
+        return random_clouds(gen, n_a, n_b, d, **kw)
+    if name == "image":
+        return gaussian_mixture_pca(gen, n_a, n_b, d, **kw)
+    if name == "higgs":
+        return higgs_like(gen, n_a, n_b, d=d, **kw)
+    raise ValueError(f"unknown dataset {name!r}")
 
 
 def clustered_sets(

@@ -22,6 +22,7 @@ from repro_torch.hd.registry import (
     METHODS,
     VARIANTS,
     UnsupportedCombination,
+    is_supported,
     register,
     supported_backends,
     supported_combinations,
@@ -41,6 +42,7 @@ __all__ = [
     "HDMeta",
     "UnsupportedCombination",
     "register",
+    "is_supported",
     "supported_backends",
     "supported_combinations",
     "resolve_backend",

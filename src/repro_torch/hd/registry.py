@@ -24,6 +24,7 @@ __all__ = [
     "validate_axes",
     "register",
     "resolve",
+    "is_supported",
     "supported_backends",
     "supported_combinations",
 ]
@@ -91,6 +92,10 @@ def resolve(variant: str, method: str, backend: str) -> Callable:
     if impl is None:
         raise UnsupportedCombination(variant, method, backend)
     return impl
+
+
+def is_supported(variant: str, method: str, backend: str) -> bool:
+    return (variant, method, backend) in _REGISTRY
 
 
 def supported_backends(variant: str, method: str) -> tuple[str, ...]:

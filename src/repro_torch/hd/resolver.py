@@ -33,11 +33,14 @@ Where this differs from the reference:
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.hd import registry
 from repro_torch.kernels.hausdorff import hausdorff as _kernel
 
 __all__ = [
     "TILE_THRESHOLD",
+    "default_device_kind",
     "resolve_backend",
     "resolve_block_sizes",
     "resolve_masked_backend",
@@ -52,6 +55,13 @@ TILE_THRESHOLD = 512
 # At D ≤ 64 bigger (4096) tiles amortise the CPU scan's loop overhead best;
 # at high D the d² tile dominates cache and 2048 wins.
 LOW_D = 64
+
+
+def default_device_kind() -> str:
+    """Kind of the process's default device: ``"cuda"`` when a CUDA device
+    is present, else ``"cpu"``.  The front doors do not read it: they take
+    the kind from their operands' device."""
+    return "cuda" if torch.cuda.is_available() else "cpu"
 
 
 def resolve_backend(

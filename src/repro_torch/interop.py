@@ -151,11 +151,11 @@ def lm_params_from_reference(params_np: dict, cfg: LMConfig, *, device=None) -> 
     """A ``TransformerLM`` holding exactly the reference's parameter values:
     ``params_np`` is the reference's param pytree as numpy arrays
     (``jax.tree.map(np.asarray, params)``), ``jax.random`` having drawn
-    them.  Values pass through fp32 (exact for bf16) into ``cfg.dtype``."""
+    them.  Values pass through fp32 (exact for bf16) into each parameter's
+    dtype: ``cfg.dtype``, or fp32 for an MoE router."""
     flat = {k: v for k, v in params_np.items() if k != "layers"}
     flat.update({f"layers.{k}": v for k, v in params_np["layers"].items()})
     model = TransformerLM(cfg, device=device)
-    model.load_state_dict(
-        {k: torch.from_numpy(np.array(v, np.float32)).to(cfg.dtype) for k, v in flat.items()},
-        strict=True)
+    model.load_state_dict({k: torch.from_numpy(np.array(v, np.float32)) for k, v in flat.items()},
+                          strict=True)
     return model

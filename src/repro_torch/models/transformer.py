@@ -1,10 +1,12 @@
 """Decoder-only transformer LM of the port: prefill and cached decode.
 
-Counterpart of ``repro/models/transformer.py`` for the dense LMs' serving
-path.  :class:`TransformerLM` holds the reference's parameter dict under
-the same names and shapes — ``embed``, ``out``, ``final_norm`` and
-``layers.{ln1, ln2, wq, wk, wv, wo, wi_gate, wi_up, wo_ffn}`` stacked on a
-leading L axis — so weights carry across name for name
+Counterpart of ``repro/models/transformer.py`` for the serving path of the
+dense and MoE LMs.  :class:`TransformerLM` holds the reference's parameter
+dict under the same names and shapes — ``embed``, ``out``, ``final_norm``
+and ``layers.{ln1, ln2, wq, wk, wv, wo, wi_gate, wi_up, wo_ffn}`` stacked
+on a leading L axis; an MoE config adds ``layers.router`` (L, D, E), kept
+in fp32 whatever ``cfg.dtype`` is, and stacks the FFN weights per expert
+(L, E, D, F) / (L, E, F, D) — so weights carry across name for name
 (``repro_torch.interop.lm_params_from_reference``).  The functions keep the
 reference's names and signatures, with the module in place of the params
 pytree.
@@ -14,8 +16,10 @@ The layer stack is a Python loop over L: ``lax.scan`` and
 updated in place (the reference returns a new one).  Prefill attention
 runs through the hand-written flash kernel on the card (kernel 4, once per
 layer, see ``models.layers.causal_attention``); decode attention is plain
-PyTorch, as the reference's is plain JAX.  ``lm_loss``, the MoE blocks and
-the sharding specs wait with training, MoE and sharding.
+PyTorch, as the reference's is plain JAX.  An MoE layer's FFN is GShard
+``layers.moe_block`` in the forward pass (its aux loss averaged over the
+layers) and ``layers.moe_dense_decode`` in decode.  ``lm_loss`` and the
+sharding specs wait with training and sharding.
 """
 from __future__ import annotations
 
@@ -32,58 +36,64 @@ from repro_torch.models import layers as L
 __all__ = ["TransformerLM", "init_lm_params", "lm_forward", "lm_logits", "prefill_step",
            "KVCache", "init_kv_cache", "serve_step"]
 
-_LAYER_NAMES = ("ln1", "ln2", "wq", "wk", "wv", "wo", "wi_gate", "wi_up", "wo_ffn")
-
 
 def _param_shapes(cfg: LMConfig) -> dict[str, tuple[int, ...]]:
+    """Every parameter's shape, in the reference's order."""
     d, hd = cfg.d_model, cfg.head_dim
     nl, h, kv, f, v = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab
-    return {
+    shapes = {
         "embed": (v, d), "out": (d, v), "final_norm": (d,),
         "layers.ln1": (nl, d), "layers.ln2": (nl, d),
         "layers.wq": (nl, d, h * hd), "layers.wk": (nl, d, kv * hd),
         "layers.wv": (nl, d, kv * hd), "layers.wo": (nl, h * hd, d),
-        "layers.wi_gate": (nl, d, f), "layers.wi_up": (nl, d, f), "layers.wo_ffn": (nl, f, d),
     }
+    if cfg.moe_experts:
+        e = cfg.moe_experts
+        shapes.update({"layers.router": (nl, d, e), "layers.wi_gate": (nl, e, d, f),
+                       "layers.wi_up": (nl, e, d, f), "layers.wo_ffn": (nl, e, f, d)})
+    else:
+        shapes.update({"layers.wi_gate": (nl, d, f), "layers.wi_up": (nl, d, f),
+                       "layers.wo_ffn": (nl, f, d)})
+    return shapes
 
 
 class TransformerLM(nn.Module):
-    """A dense decoder-only LM's parameters (zeros until filled) on one
-    device: ``cuda`` unless ``device`` says otherwise.  Serving only: no
-    parameter takes a gradient."""
+    """A decoder-only LM's parameters (zeros until filled) on one device:
+    ``cuda`` unless ``device`` says otherwise.  Every parameter is in
+    ``cfg.dtype`` but an MoE router, which is fp32 as the reference's.
+    Serving only: no parameter takes a gradient."""
 
     def __init__(self, cfg: LMConfig, *, device=None):
         super().__init__()
-        if cfg.moe_experts:
-            raise NotImplementedError("MoE LMs are not ported yet (ROADMAP.md, Queue 1)")
         dev = resolve_device(None, device)
         self.cfg = cfg
 
-        def param(shape):
-            return nn.Parameter(torch.zeros(shape, dtype=cfg.dtype, device=dev),
-                                requires_grad=False)
+        def param(shape, dtype=cfg.dtype):
+            return nn.Parameter(torch.zeros(shape, dtype=dtype, device=dev), requires_grad=False)
 
         shapes = _param_shapes(cfg)
         self.embed = param(shapes["embed"])
         self.out = param(shapes["out"])
         self.final_norm = param(shapes["final_norm"])
-        self.layers = nn.ParameterDict({n: param(shapes[f"layers.{n}"]) for n in _LAYER_NAMES})
+        self.layers = nn.ParameterDict({
+            n.removeprefix("layers."): param(shape, torch.float32 if n == "layers.router" else cfg.dtype)
+            for n, shape in shapes.items() if n.startswith("layers.")})
 
 
 def init_lm_params(gen: torch.Generator, cfg: LMConfig) -> TransformerLM:
     """A model on ``gen``'s device with the reference's initial values'
     distributions: embed N(0, 1); every matrix N(0, 1/fan_in) with fan_in
-    its second-to-last dim; norms 0.  Drawn in fp32, stored in
-    ``cfg.dtype``.  ``jax.random``'s numbers themselves cannot be redrawn:
-    tests carry the reference's values across instead."""
+    its second-to-last dim (the router's is D); norms 0.  Drawn in fp32,
+    stored in each parameter's dtype.  ``jax.random``'s numbers themselves
+    cannot be redrawn: tests carry the reference's values across instead."""
     model = TransformerLM(cfg, device=gen.device)
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name in ("final_norm", "layers.ln1", "layers.ln2"):
                 continue
             scale = 1.0 if name == "embed" else p.shape[-2] ** -0.5
-            x = torch.randn(p.shape, generator=gen, dtype=torch.float32, device=gen.device)
-            p.copy_(x * scale)
+            p.copy_(torch.randn(p.shape, generator=gen, dtype=torch.float32,
+                                device=gen.device).mul_(scale))
     return model
 
 
@@ -108,11 +118,12 @@ def _attn_spec(cfg: LMConfig) -> L.AttnSpec:
 
 
 def _layer(params: TransformerLM, i: int) -> dict[str, torch.Tensor]:
-    return {n: params.layers[n][i] for n in _LAYER_NAMES}
+    return {n: p[i] for n, p in params.layers.items()}
 
 
 def _layer_fwd(cfg: LMConfig, x, lp, positions):
-    """One transformer block (prefill path).  x: (B, S, D)."""
+    """One transformer block (prefill path).  x: (B, S, D).  Returns x and
+    the layer's aux loss (fp32; 0 for a dense FFN)."""
     b, s_len, _ = x.shape
     hd = cfg.head_dim
     h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
@@ -124,21 +135,30 @@ def _layer_fwd(cfg: LMConfig, x, lp, positions):
     attn = L.causal_attention(q, k, v, _attn_spec(cfg)).reshape(b, s_len, cfg.n_heads * hd)
     x = x + torch.matmul(attn, lp["wo"]).to(x.dtype)
     h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    return x + L.swiglu(h, lp["wi_gate"], lp["wi_up"], lp["wo_ffn"]).to(x.dtype)
+    if cfg.moe_experts:
+        y, metrics = L.moe_block(h, lp["router"], lp["wi_gate"], lp["wi_up"], lp["wo_ffn"],
+                                 top_k=cfg.moe_top_k, capacity_factor=cfg.capacity_factor)
+        aux = metrics.aux_loss
+    else:
+        y = L.swiglu(h, lp["wi_gate"], lp["wi_up"], lp["wo_ffn"])
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y.to(x.dtype), aux
 
 
 @torch.no_grad()
 @lm_precision()
 def lm_forward(params: TransformerLM, tokens, cfg: LMConfig):
     """Token ids (B, S) → final hidden states (B, S, D) and the mean aux
-    loss (0 for a dense model)."""
+    loss over the layers (fp32; 0 for a dense model)."""
     tokens = _tokens(tokens, params)
     x = _embed(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=x.device)
+    auxes = []
     for i in range(cfg.n_layers):
-        x = _layer_fwd(cfg, x, _layer(params, i), positions)
+        x, aux = _layer_fwd(cfg, x, _layer(params, i), positions)
+        auxes.append(aux)
     x = L.rmsnorm(x, params.final_norm, cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, torch.mean(torch.stack(auxes))
 
 
 @torch.no_grad()
@@ -189,7 +209,13 @@ def _layer_decode(cfg: LMConfig, x, lp, kc, vc, length):
     attn = L.decode_attention(q, kc, vc, _attn_spec(cfg), length=length + 1)
     x = x + torch.matmul(attn.reshape(b, -1), lp["wo"]).to(x.dtype)
     h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    x = x + L.swiglu(h, lp["wi_gate"], lp["wi_up"], lp["wo_ffn"]).to(x.dtype)
+    if cfg.moe_experts:
+        # every expert runs on the new token: no dispatch, no dropping
+        y = L.moe_dense_decode(h, lp["router"], lp["wi_gate"], lp["wi_up"], lp["wo_ffn"],
+                               top_k=cfg.moe_top_k)
+    else:
+        y = L.swiglu(h, lp["wi_gate"], lp["wi_up"], lp["wo_ffn"])
+    x = x + y.to(x.dtype)
     return x, kc, vc
 
 

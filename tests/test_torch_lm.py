@@ -1,6 +1,7 @@
 """The port's LM serving path held to the JAX reference.
 
-Each dense config at ``smoke_lm_config`` size (fp32; one bf16 case): the
+Each LM config, dense and MoE, at ``smoke_lm_config`` size (fp32; one
+bf16 case): the
 reference draws the parameters with ``jax.random``, and
 ``interop.lm_params_from_reference`` carries the same values into a
 ``TransformerLM``; the same numpy tokens then go through both packages'
@@ -37,7 +38,8 @@ from repro_torch.data import synth  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 
-ARCHS = ["tinyllama-1.1b", "stablelm-3b", "deepseek-67b"]
+ARCHS = ["tinyllama-1.1b", "stablelm-3b", "deepseek-67b", "olmoe-1b-7b", "grok-1-314b"]
+MOE_ARCHS = ["olmoe-1b-7b", "grok-1-314b"]
 ATOL, RTOL = 2e-5, 1e-4
 N_STEPS = 8
 
@@ -83,10 +85,12 @@ def test_configs_match_reference(arch):
 
 
 def test_registry_holds_the_ported_dense_lms():
-    assert set(base.arch_ids()) == set(ARCHS)
-    assert set(base.registry()) == set(ARCHS)
+    """Every LM arch of the reference's registry, dense and MoE, and no other."""
+    ref_lms = {a for a in ref_base.arch_ids() if ref_base.load_arch(a).config.family == "lm"}
+    assert set(base.arch_ids()) == set(base.registry()) == set(ARCHS) == ref_lms
+    assert {a for a in ARCHS if base.load_arch(a).config.moe_experts} == set(MOE_ARCHS)
     with pytest.raises(KeyError):
-        base.load_arch("olmoe-1b-7b")
+        base.load_arch("gat-cora")
 
 
 def test_rmsnorm_rope_swiglu_match_reference():
@@ -131,7 +135,9 @@ def test_prefill_and_forward_match_reference(arch):
     hidden, aux = T.lm_forward(model, toks, cfg)
     ref_hidden, ref_aux = jax.jit(functools.partial(ref_lm.lm_forward, cfg=ref_cfg))(params, toks)
     np.testing.assert_allclose(hidden.numpy(), np.asarray(ref_hidden), atol=ATOL, rtol=RTOL)
-    assert float(aux) == float(ref_aux) == 0.0
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    np.testing.assert_allclose(float(aux), float(ref_aux), atol=ATOL, rtol=RTOL)
+    assert (float(aux) == 0.0) == (arch not in MOE_ARCHS)
     np.testing.assert_allclose(T.lm_logits(model, hidden, cfg).numpy(),
                                np.asarray(ref_lm.lm_logits(params, ref_hidden, ref_cfg)),
                                atol=ATOL, rtol=RTOL)
@@ -322,7 +328,40 @@ def test_token_ids_from_outside_are_checked():
 
 
 def test_moe_configs_are_not_ported_yet():
+    """An MoE config builds the reference's expert-stacked parameters: a
+    dense config given experts constructs, under the reference's names and
+    shapes, with the router first among the FFN weights."""
     cfg = dataclasses.replace(base.smoke_lm_config(base.load_arch("tinyllama-1.1b").config),
                               moe_experts=4, moe_top_k=2)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        T.TransformerLM(cfg, device="cpu")
+    model = T.TransformerLM(cfg, device="cpu")
+    ref_cfg = dataclasses.replace(ref_base.smoke_lm_config(ref_base.load_arch("tinyllama-1.1b").config),
+                                  moe_experts=4, moe_top_k=2)
+    ref = jax.eval_shape(lambda k: ref_lm.init_lm_params(k, ref_cfg), jax.random.PRNGKey(0))
+    assert list(model.layers) == list(ref["layers"])
+    for name, p in model.layers.items():
+        assert tuple(p.shape) == ref["layers"][name].shape, name
+    assert tuple(model.layers["wi_gate"].shape) == (2, 4, 64, 96)
+    assert tuple(model.layers["wo_ffn"].shape) == (2, 4, 96, 64)
+    toks = _tokens(6, 1, 8, cfg.vocab)
+    hidden, aux = T.lm_forward(model, toks, cfg)  # zero weights: uniform routing
+    assert hidden.shape == (1, 8, cfg.d_model) and float(aux) == pytest.approx(1.0)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_router_stays_fp32_in_a_bf16_model(arch):
+    """The reference keeps the router fp32 whatever the model's dtype; so do
+    the port's constructor, its initialiser and ``lm_params_from_reference``
+    (whose values reach the router without a bf16 rounding)."""
+    cfg = dataclasses.replace(base.smoke_lm_config(base.load_arch(arch).config), dtype=torch.bfloat16)
+    model = T.init_lm_params(torch.Generator().manual_seed(0), cfg)
+    assert model.layers["router"].dtype == torch.float32
+    assert all(p.dtype == torch.bfloat16 for n, p in model.named_parameters() if n != "layers.router")
+    p = model.layers["router"]
+    assert abs(p.std().item() * p.shape[-2] ** 0.5 - 1.0) < 0.1
+    ref_cfg, params, _, _ = _pair(arch, "bfloat16")
+    ref_router = np.asarray(params["layers"]["router"])
+    assert ref_router.dtype == np.float32
+    carried = interop.lm_params_from_reference(jax.tree.map(np.asarray, params), cfg, device="cpu")
+    assert carried.layers["router"].dtype == torch.float32
+    np.testing.assert_array_equal(carried.layers["router"].numpy(), ref_router)
+    assert carried.layers["wi_gate"].dtype == torch.bfloat16
