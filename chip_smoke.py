@@ -194,10 +194,32 @@ the seed):
      memory-efficient backend with an explicit (S, S) mask, and for the
      causal fp32 one also that backend's own causal mask, is_causal).
 
+Training (TinyLlama-1.1B, random bf16 weights from the seed):
+  16. kernel 4 under autograd: flash.flash_attention_grad (kernel 4's
+     forward, the reference's recomputing backward in plain PyTorch)
+     against torch.autograd through flash_attention_plain on CUDA tensors
+     (bf16 and fp32; GQA 32/4 of 64 and MHA 16/16 of 128; S 4,096 and a
+     ragged 1,000), dq, dk, dv per entry within attn_grad_error's bound,
+     one kernel-4 launch per forward and none in the backward; the bf16
+     model's gradients of lm_loss at 1 × 512 against the same weights in
+     float64 through the plain functions, per parameter and whole within
+     √(28·L + 4)·2⁻⁸ relative L2; then main path 7: train.loop.fit, 4
+     AdamW steps (lr 1e-3, weight decay 0.01, fp32 master) at 4 × 4,096
+     tokens in 2 microbatches (cell train_4k, global batch 256 cut to 4),
+     remat on, a checkpoint every 2 steps in a temporary directory (15.4
+     GB each; the card's machine caps a call's disk writes at 45 GiB), a
+     failure injected at step 3 (the restored step-2 state bitwise what was
+     written), a drift hook every 2 steps (ProHD on kernel 1 between the
+     embedding table now and at the start, once held to the exact kernel-1
+     HD); loss, grad norm, wall time, tokens/s and peak memory per step;
+     2 × 22 × 2 kernel-4 launches per step, all on the bf16 route; then
+     ``python -m repro_torch.launch.train --arch tinyllama-1.1b --steps 4``
+     as a subprocess (the fp32 smoke config, route "ffma"), exit code 0.
+
 Each main path (phases 4-6: set_distance; 6b, 6c and 6d, each its own;
 phase 7b's two-sweep call; phase 8: search; phases 10 and 10b:
 search_batch; 10c: shards=1; phase 11: the served paths; phases 14 and
-14b: each prefill_step and each decode loop)
+14b: each prefill_step and each decode loop; phase 16: the fit call)
 runs with the kernels' launch counters set to 0 just before it and read
 just after; launches made only to compare a kernel with its plain version
 are taken back out.
@@ -384,6 +406,23 @@ MOE_DECODE_BATCH = 8
 # Phase 7b: the paper's exact baselines.  Two-sweep against the fused call at
 # phase 7's 65,536² (N_VARIANT); the early break on Random Clouds at
 # N_EARLYBREAK² on the CPU and on the card.
+# Phase 16 (training): cell train_4k of LM_SHAPES, its global batch of 256
+# cut to 4 sequences of 4,096 tokens in 2 microbatches on one card.
+TRAIN_SHAPE = (4, 4_096)
+TRAIN_MICROBATCHES = 2
+# A checkpoint is 15.4 GB (bf16 weights, AdamW's fp32 mu, nu and master), and
+# a call on the card may write 45 GiB to its disk: a save every 2 steps
+# (step 2 and the final step 3) writes 31 GB, where every step would write 62.
+TRAIN_STEPS = 4
+TRAIN_CKPT_EVERY = 2
+TRAIN_FAIL_AT = 3
+TRAIN_DRIFT_EVERY = 2
+GRAD64_TOKENS = 512
+# (B, S, H, KV, hd, dtype, kv chunk): kernel 4 under autograd; S 1,000 is
+# ragged against the kernel's 128-row and 64/128-key tiles.
+ATTN_GRAD_CASES = tuple(
+    (1, s, h, kv, hd, dtype, 512 if s % 512 == 0 else 200)
+    for dtype in ("bfloat16", "float32") for h, kv, hd in ((32, 4, 64), (16, 16, 128)) for s in (4_096, 1_000))
 N_EARLYBREAK = 4_096
 # Phase 11b: the profiled search runs on a corpus of this many sets.
 N_OBS_SETS = 512
@@ -2899,7 +2938,7 @@ def phase_moe(seed: int) -> dict:
     out["launches"] += n
     out["route_launches"]["wgmma"] += n
     means = moe_means(calls)
-    with uncounted():
+    with uncounted(), torch.no_grad():
         _, aux = T.lm_forward(model, prompt, cfg)
     assert abs(float(aux) - means["aux_loss"]) <= 1e-6 * abs(means["aux_loss"]), (float(aux), means)
     out["float64"] = {**float64_check(model, prompt, cfg, logits, calls, tol), "wall_s": dt, **means,
@@ -3088,6 +3127,322 @@ def phase_times_flash(seed: int, env: dict) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 16: training (kernel 4 under autograd, TinyLlama-1.1B through fit)
+# ---------------------------------------------------------------------------
+
+
+def attn_grad_error(got, want) -> dict:
+    """A gradient of attention held entry by entry against another
+    computation of it (``want``, torch.autograd through the plain
+    recurrence).  Per entry, with w = |want| and r = the RMS of ``want``
+    over the tensor (a gradient has no unit of its own, so the absolute
+    part scales with its size):
+      fp32:  |Δ| ≤ 2e-5·r + 1e-4·w, the reference's fp32 tolerance
+        (tests/test_kernels.py:115) with r in the place of 1;
+      bf16:  add 2⁻⁷·w.  Both sides take their gradient in fp32 and cast
+        it to bf16 once; fp32 values within the fp32 part may round to
+        neighbouring bf16 values, one spacing ≤ 2⁻⁷·w apart.
+    Returns the worst |Δ|, the largest |Δ| / tolerance (≤ 1 to pass),
+    the entries over their tolerance and whether the two are bitwise
+    equal."""
+    import torch
+
+    want32 = want.double()
+    w = want32.abs()
+    r = float(torch.sqrt(torch.mean(want32 * want32)))
+    tol = 2e-5 * r + 1e-4 * w
+    if got.dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * w
+    diff = (got.double() - want32).abs()
+    return {"max_abs_err": float(diff.max()), "max_ratio": float((diff / tol.clamp(min=1e-300)).max()),
+            "n_over": int((diff > tol).sum()), "bitwise": bool(torch.equal(got, want))}
+
+
+def phase_attn_grad(seed: int) -> dict:
+    """Kernel 4 under autograd: ``flash.flash_attention_grad`` (kernel 4's
+    forward, the recomputing plain backward) against torch.autograd through
+    ``flash_attention_plain``, on CUDA tensors.  Comparison launches:
+    counted here (one per case), taken back out of the main-path counts."""
+    import torch
+
+    from repro_torch.data.pointclouds import make_generator
+    from repro_torch.kernels.flash_attention import flash as F
+
+    gen = make_generator(seed + 16, DEVICE)
+    rows, worst = [], 0.0
+    with uncounted():
+        for b, s, h, kv, hd, dtype_name, chunk in ATTN_GRAD_CASES:
+            dtype = getattr(torch, dtype_name)
+            q, k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+                       for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+            dout = torch.randn((b, s, h, hd), generator=gen, device=DEVICE).to(dtype)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            before = route_counts()
+            out = F.flash_attention_grad(*leaves, chunk=chunk)
+            route = F.route(dtype, hd)
+            assert route_counts()[route] == before[route] + 1, (route, before, route_counts())
+            grads = torch.autograd.grad(out, leaves, dout)
+            torch.cuda.synchronize()
+            assert route_counts() == {**before, route: before[route] + 1}, "the backward launched a kernel"
+            plain = [t.clone().requires_grad_() for t in (q, k, v)]
+            out_p = F.flash_attention_plain(*plain, chunk=chunk)
+            want = torch.autograd.grad(out_p, plain, dout)
+            fwd = flash_error(out.detach(), out_p.detach(), weighted_abs_v(q, k, v, causal=True))
+            assert fwd["max_ratio"] <= 1, ("forward", b, s, h, kv, hd, dtype_name, fwd)
+            row = {"case": [b, s, h, kv, hd, dtype_name, chunk], "route": route, "forward": fwd}
+            for name, g, wg in zip(("dq", "dk", "dv"), grads, want):
+                assert g.shape == wg.shape and g.dtype == dtype and bool(torch.isfinite(g).all())
+                e = attn_grad_error(g, wg)
+                assert e["max_ratio"] <= 1, (row["case"], name, e)
+                row[name] = e
+                worst = max(worst, e["max_abs_err"])
+            rows.append(row)
+            del q, k, v, dout, leaves, out, grads, plain, out_p, want
+            torch.cuda.empty_cache()
+    out = {"phase": "attn_grad", "cases": rows, "max_abs_err": worst,
+           "max_ratio": max(r[g]["max_ratio"] for r in rows for g in ("dq", "dk", "dv")),
+           "all_bitwise": all(r[g]["bitwise"] for r in rows for g in ("dq", "dk", "dv"))}
+    emit(out)
+    return out
+
+
+def bf16_grad_tolerance(n_layers: int) -> float:
+    """Relative L2 distance of a bf16 model's gradients from exact
+    arithmetic: each bf16 rounding moves a value by at most u = 2⁻⁸
+    relative, with independent signs, so R roundings add to √R·u.  A
+    gradient depends on the forward's roundings (14 per layer, 3 for the
+    final norm: :func:`bf16_logit_tolerance`), on as many in the backward
+    (each forward rounding point rounds its gradient once) and on its own
+    cast to bf16: R = 28·L + 4."""
+    return (28 * n_layers + 4) ** 0.5 * 2.0 ** -8
+
+
+def grads_vs_float64(model, cfg, tokens) -> dict:
+    """The bf16 model's gradients of ``lm_loss`` on ``tokens`` against the
+    same weights in float64 through the plain functions (uncounted)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash as F
+    from repro_torch.models import transformer as T
+
+    def grads_of(m, c):
+        named = dict(m.named_parameters())
+        loss, _ = T.lm_loss(m, {"tokens": tokens}, c)
+        return float(loss.detach()), dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+
+    t0 = time.perf_counter()
+    with uncounted():
+        loss, grads = grads_of(model, cfg)
+        torch.cuda.synchronize()
+        bf16_s = time.perf_counter() - t0
+        cfg64 = dataclasses.replace(cfg, dtype=torch.float64)
+        model64 = T.TransformerLM(cfg64, device=DEVICE)
+        model64.load_state_dict(model.state_dict())
+        with flash_replaced(lambda q, k, v, causal=True, **mask: F.flash_attention_plain(
+                q, k, v, causal=causal, chunk=cfg.attn_chunk, **mask)):
+            loss64, grads64 = grads_of(model64, cfg64)
+    del model64
+    tol = bf16_grad_tolerance(cfg.n_layers)
+    per, num, den = {}, 0.0, 0.0
+    for n, g in grads.items():
+        assert g.dtype == model.get_parameter(n).dtype and bool(torch.isfinite(g).all()), n
+        d2 = float(torch.sum((g.double() - grads64[n]) ** 2))
+        r2 = float(torch.sum(grads64[n] ** 2))
+        per[n] = (d2 / r2) ** 0.5
+        num, den = num + d2, den + r2
+    del grads, grads64
+    torch.cuda.empty_cache()
+    whole = (num / den) ** 0.5
+    out = {"tokens": list(tokens.shape), "loss": loss, "loss_float64": loss64, "tol": tol,
+           "rel_l2": per, "rel_l2_whole": whole, "ratio": {n: e / tol for n, e in per.items()},
+           "max_ratio": max(per.values()) / tol, "whole_ratio": whole / tol, "bf16_grad_s": bf16_s}
+    assert max(per.values()) <= tol and whole <= tol, out
+    return out
+
+
+@contextlib.contextmanager
+def checkpoints_observed(keep_step: int):
+    """Inside the block the background writer's ``checkpoint.save`` keeps
+    the host snapshot it writes for ``keep_step`` and times every write,
+    and every ``checkpoint.restore`` is timed and, for that step, held leaf
+    by leaf, bitwise, to the snapshot (:func:`bitwise_as_saved`) before it
+    returns.  Yields {"writes": [(step, s)], "restores": [(step, s, leaves
+    equal, leaves, compare s)]}."""
+    from repro_torch.train import checkpoint as C
+
+    saved, seen = {}, {"writes": [], "restores": []}
+    real_save, real_restore = C.save, C.restore
+
+    def save(root, step, tree, **kw):
+        if step == keep_step:
+            saved[step] = tree
+        t0 = time.perf_counter()
+        out = real_save(root, step, tree, **kw)
+        seen["writes"].append((step, time.perf_counter() - t0))
+        return out
+
+    def restore(root, tree_like, step=None, device=None):
+        t0 = time.perf_counter()
+        tree, got = real_restore(root, tree_like, step=step, device=device)
+        t1 = time.perf_counter()
+        same, leaves = bitwise_as_saved(tree, saved[got]) if got in saved else (0, -1)
+        seen["restores"].append((got, t1 - t0, same, leaves, time.perf_counter() - t1))
+        return tree, got
+
+    C.save, C.restore = save, restore
+    try:
+        yield seen
+    finally:
+        C.save, C.restore = real_save, real_restore
+        saved.clear()
+
+
+def bitwise_as_saved(restored: dict, snapshot: dict) -> tuple[int, int]:
+    """(leaves bitwise equal, leaves) of a restored tree (tensors on the
+    card) against the host snapshot the checkpoint was written from,
+    compared on the card as integer words."""
+    import numpy as np
+    import torch
+
+    from repro_torch.train import checkpoint as C
+
+    words = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    flat_r, flat_s = C._flatten(restored), C._flatten(snapshot)
+    assert flat_r.keys() == flat_s.keys(), (sorted(flat_r)[:5], sorted(flat_s)[:5])
+    same = 0
+    for key, t in flat_r.items():
+        snap = np.asarray(flat_s[key])
+        want = torch.from_numpy(snap.view(f"i{snap.itemsize}")).to(t.device)
+        same += int(tuple(t.shape) == snap.shape and torch.equal(t.view(words[t.element_size()]), want))
+    return same, len(flat_r)
+
+
+def phase_train(seed: int, env: dict) -> dict:
+    """Main path 7: TinyLlama-1.1B at full width and depth, bf16, random
+    weights, trained through ``train.loop.fit``; its gradients at step 0
+    against float64 first (uncounted)."""
+    import math
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs.base import load_arch
+    from repro_torch.core.fp_margin import fp_value_margin
+    from repro_torch.data import synth
+    from repro_torch.data.pointclouds import make_generator
+    from repro_torch.hd import set_distance
+    from repro_torch.kernels.flash_attention import flash as F
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer
+    from repro_torch.train.loop import TrainConfig, fit, make_set_distance_metric
+
+    cfg = load_arch(LM_ARCH).config
+    assert cfg.remat and cfg.dtype == torch.bfloat16
+    gen = make_generator(seed + 17, DEVICE)
+    model = T.init_lm_params(gen, cfg)
+    out = {"arch": LM_ARCH, "params_billions": cfg.params_billions(), "remat": cfg.remat}
+
+    # Gradients at the step-0 weights against float64.
+    prompt = synth.lm_batch(gen, cfg, 1, GRAD64_TOKENS)["tokens"]
+    out["float64"] = grads_vs_float64(model, cfg, prompt)
+    emit({"phase": "train_grads_float64", **out["float64"]})
+
+    b, s = TRAIN_SHAPE
+    steps_run = []
+    state = {"embed0": model.embed.detach().float(), "drift": []}  # fp32 holds bf16 exactly
+    metric = make_set_distance_metric(variant="hausdorff", method="prohd")
+
+    def data_iter(start):
+        i = start
+        while True:
+            yield synth.lm_batch(make_generator(seed + 1000 + i, DEVICE), cfg, b, s)
+            i += 1
+
+    def log_fn(step, rec):
+        rec = {"step": step, "loss": rec["loss"], "ce_loss": rec["ce_loss"], "grad_norm": rec["grad_norm"],
+               "wall_s": rec["dt"], "tokens_per_s": b * s / rec["dt"], "straggler": rec["straggler"],
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        steps_run.append(rec)
+        emit({"phase": "train_step", **rec})
+
+    def drift_hook(params, info):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = metric(params.embed.float(), state["embed0"])
+        v, lo, up = float(res.value), float(res.lower), float(res.upper)
+        rec = {"step": info["step"], "value": v, "lower": lo, "upper": up,
+               "wall_s": time.perf_counter() - t0}
+        if info["step"] > 0 and "exact" not in state:  # once: the exact kernel-1 HD of the same pair
+            with uncounted():
+                h = float(set_distance(params.embed.float(), state["embed0"]).value)
+            scale = max(float(torch.linalg.vector_norm(x.float(), dim=1).max())
+                        for x in (params.embed, state["embed0"]))
+            m = float(fp_value_margin(cfg.d_model, scale, h))
+            assert lo <= h + m and h <= up + m and v <= h + m, (v, lo, up, h, m)
+            state["exact"] = rec["exact"] = h
+            rec["margin"] = m
+        state["drift"].append(rec)
+        emit({"phase": "train_drift", **rec})
+
+    restore_step = (TRAIN_FAIL_AT - 1) // TRAIN_CKPT_EVERY * TRAIN_CKPT_EVERY  # the newest save before it
+    with tempfile.TemporaryDirectory() as ckpt_dir, checkpoints_observed(restore_step) as seen:
+        tc = TrainConfig(steps=TRAIN_STEPS, microbatches=TRAIN_MICROBATCHES, log_every=1,
+                         ckpt_every=TRAIN_CKPT_EVERY, ckpt_dir=ckpt_dir, drift_every=TRAIN_DRIFT_EVERY)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        fit(params=model, optimizer=optimizer.adamw(lr=1e-3, weight_decay=0.01),
+            loss_fn=lambda p, batch: T.lm_loss(p, batch, cfg), data_iter_fn=data_iter, cfg=tc,
+            drift_hook=drift_hook, log_fn=log_fn, _fail_at=TRAIN_FAIL_AT)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n, routes = counts(), route_counts()
+        # one restore, of the newest checkpoint before the failure, bitwise what was written
+        assert len(seen["restores"]) == 1 and seen["restores"][0][0] == restore_step, seen
+        _, restore_s, same, leaves, compare_s = seen["restores"][0]
+        assert same == leaves > 0, seen
+        ckpt_bytes = sum(f.stat().st_size for f in Path(ckpt_dir).glob(f"ckpt_{restore_step}/*"))
+    assert [r["step"] for r in steps_run] == list(range(TRAIN_STEPS)), steps_run
+    assert all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in steps_run), steps_run
+    per_step = 2 * cfg.n_layers * TRAIN_MICROBATCHES  # forward + remat recompute, per microbatch
+    assert n["flash_fwd"] == per_step * TRAIN_STEPS, (n, per_step)
+    assert routes == {**dict.fromkeys(F.ROUTES, 0), "wgmma": n["flash_fwd"]}, routes
+    assert n["fused_minscan"] > 0 and n["batched_minscan"] == n["multiquery_minscan"] == 0, n
+    assert "exact" in state and [d["step"] for d in state["drift"]] == [0, TRAIN_DRIFT_EVERY], state["drift"]
+    out.update({"shape": list(TRAIN_SHAPE), "microbatches": TRAIN_MICROBATCHES, "steps": steps_run,
+                "launches": n, "route_launches": routes, "kernel4_per_step": per_step,
+                "restored_step": restore_step, "restored_leaves_bitwise": f"{same}/{leaves}",
+                "restore_s": restore_s, "restore_compare_s": compare_s, "checkpoint_gb": ckpt_bytes / 1e9,
+                "checkpoint_write_s": [w for _, w in seen["writes"]],
+                "checkpoint_saves": TRAIN_STEPS // TRAIN_CKPT_EVERY, "drift": state["drift"], "fit_wall_s": wall,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del model, state
+    torch.cuda.empty_cache()
+    emit({"phase": "train", **{k: v for k, v in out.items() if k != "float64"}})
+    return out
+
+
+def phase_train_launcher() -> dict:
+    """``python -m repro_torch.launch.train --arch tinyllama-1.1b --steps 4``
+    on the card, as a subprocess: the smoke config on kernel 4's fp32
+    route."""
+    import os
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch", LM_ARCH, "--steps", "4"],
+                          cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                          capture_output=True, text=True, timeout=600)
+    out = {"phase": "train_launcher", "returncode": proc.returncode, "wall_s": time.perf_counter() - t0,
+           "stdout": proc.stdout.strip().splitlines()[-6:]}
+    emit(out)
+    assert proc.returncode == 0 and "[train] done" in proc.stdout and "device=cuda" in proc.stdout, proc.stderr
+    return out
+
+
 def held_summary(path: str, scans: list) -> dict:
     """One path's wrapper calls held to the plain version: how many, the
     worst |Δ|, the tightest tolerance any of them was held to and, where the
@@ -3248,6 +3603,15 @@ def main() -> int:
     emit({"phase": "main_path", "path": "moe_serve", "launches": {"flash_fwd": moe["launches"]},
           "route_launches": moe["route_launches"], "wall_s": time.perf_counter() - t0})
     rows4 = phase_times_flash(args.seed, env)
+    # Phase 16: training.  Kernel 4 under autograd (comparison launches, not
+    # counted), then main path 7: TinyLlama-1.1B through fit (counted inside
+    # phase_train around the fit call), then the launcher in a subprocess.
+    attn_grad = phase_attn_grad(args.seed)
+    t0 = time.perf_counter()
+    train = phase_train(args.seed, env)
+    emit({"phase": "main_path", "path": "train", "launches": train["launches"],
+          "route_launches": train["route_launches"], "wall_s": time.perf_counter() - t0})
+    phase_train_launcher()
 
     def total(name):
         return sum(c[name] for c in (search_launches, batch_launches, shard_launches, serve_launches))
@@ -3256,18 +3620,22 @@ def main() -> int:
         kernel_entry("fused_minscan", "cuda", KERNEL_SOURCE, TPU_KERNEL,
                      pair_launches + total("fused_minscan") + dist_launches["fused_minscan"]
                      + sum(c["fused_minscan"] for c in side_launches.values())
-                     + baselines["twosweep"]["launches"],
+                     + baselines["twosweep"]["launches"] + train["launches"]["fused_minscan"],
                      max(max_err, exact_err), rows),
         kernel_entry("batched_minscan", "cuda", KERNEL2_SOURCE, TPU_KERNEL2,
                      total("batched_minscan"), max_err2, rows2, held2),
         kernel_entry("multiquery_minscan", "cuda", KERNEL3_SOURCE, TPU_KERNEL3,
                      total("multiquery_minscan"), max_err3, rows3, held3),
-        {**kernel_entry("flash_fwd", "cuda", KERNEL4_SOURCE, TPU_KERNEL4, lm["launches"] + moe["launches"],
-                        max_err4, rows4, (lm["held"], moe["held"])),
+        {**kernel_entry("flash_fwd", "cuda", KERNEL4_SOURCE, TPU_KERNEL4,
+                        lm["launches"] + moe["launches"] + train["launches"]["flash_fwd"],
+                        max([max_err4] + [r["forward"]["max_abs_err"] for r in attn_grad["cases"]]),
+                        rows4, (lm["held"], moe["held"])),
          "routes": {"wgmma": {"dtype": "bfloat16", "source": KERNEL4_SOURCE, "replaces": TPU_KERNEL4,
-                              "launches": lm["route_launches"]["wgmma"] + moe["route_launches"]["wgmma"]},
+                              "launches": lm["route_launches"]["wgmma"] + moe["route_launches"]["wgmma"]
+                              + train["route_launches"]["wgmma"]},
                     "ffma": {"dtype": "float32", "source": KERNEL4_FP32_SOURCE, "replaces": TPU_KERNEL4,
-                             "launches": lm["route_launches"]["ffma"] + moe["route_launches"]["ffma"]}}},
+                             "launches": lm["route_launches"]["ffma"] + moe["route_launches"]["ffma"]
+                             + train["route_launches"]["ffma"]}}},
     ]})
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
     print(smi("name,power.limit"), flush=True)

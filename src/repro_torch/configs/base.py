@@ -7,11 +7,14 @@ architecture is a module ``repro_torch/configs/<id>.py`` exporting
 and MoE LMs; GNN and recsys wait with their models).
 
 ``LMConfig.dtype`` is a ``torch.dtype`` (bf16 by default, fp32 in
-``smoke_lm_config``).  The fields that only the reference's mesh and jit
-read — ``fsdp``, ``model_axis_role``, ``unroll`` and ``remat`` — are kept as
+``smoke_lm_config``).  ``remat`` is live: with a gradient recorded, each
+layer of ``models.transformer.lm_forward`` runs under
+``torch.utils.checkpoint`` and is recomputed in the backward, as the
+reference's ``jax.checkpoint``.  The fields that only the reference's mesh
+and jit read — ``fsdp``, ``model_axis_role`` and ``unroll`` — are kept as
 inert fields, so a reference config dict maps over one to one
 (``repro_torch.interop.lm_config_from_dict``); the port runs on one device
-with no mesh, and its forward pass has no scan to unroll or remat.
+with no mesh, and its forward pass has no scan to unroll.
 """
 from __future__ import annotations
 
@@ -71,7 +74,7 @@ class LMConfig:
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
     fsdp: bool = False          # inert: mesh placement in the reference
-    remat: bool = True          # inert: jax.checkpoint in the reference
+    remat: bool = True          # recompute each layer in the backward (torch.utils.checkpoint)
     attn_chunk: int = 512       # kv-chunk of the plain online-softmax attention
     capacity_factor: float = 1.25
     window: int | None = None   # sliding-window attention (None = full)

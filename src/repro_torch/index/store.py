@@ -33,15 +33,12 @@ packages, pass the reference store's bank through ``SetStore(directions=)``
 """
 from __future__ import annotations
 
-import contextlib
 import hashlib
 import json
 import os
 import re
-import shutil
-import uuid
 from pathlib import Path
-from typing import Iterable, Iterator, NamedTuple, Sequence
+from typing import Iterable, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -51,6 +48,7 @@ from repro_torch.device import resolve_device
 from repro_torch.obs import trace as _obs
 from repro_torch.reliability import faults as _faults
 from repro_torch.reliability.errors import StoreCorruption
+from repro_torch.train.checkpoint import atomic_snapshot_dir, read_latest, write_latest
 
 __all__ = [
     "SetSummary",
@@ -185,43 +183,6 @@ def summarize_set(points: torch.Tensor, valid: torch.Tensor, directions: torch.T
                    proj_lo=proj_lo, proj_hi=proj_hi, count=count),
         sqn,
     )
-
-
-@contextlib.contextmanager
-def atomic_snapshot_dir(root: str | os.PathLike, name: str) -> Iterator[Path]:
-    """Write-to-tmp-then-rename directory snapshot.
-
-    The port's copy of the reference's ``train/checkpoint.atomic_snapshot_dir``:
-    yields a fresh ``<root>/<name>.tmp.<nonce>/`` to populate; on a clean
-    exit it is renamed over ``<root>/<name>``; on any exception it is
-    deleted and the previous snapshot is untouched.
-    """
-    root = Path(root)
-    root.mkdir(parents=True, exist_ok=True)
-    final = root / name
-    tmp = root / f"{name}.tmp.{uuid.uuid4().hex[:8]}"
-    tmp.mkdir(parents=True)
-    try:
-        yield tmp
-        if final.exists():
-            shutil.rmtree(final)
-        os.rename(tmp, final)
-    except BaseException:
-        shutil.rmtree(tmp, ignore_errors=True)
-        raise
-
-
-def _write_latest(root: str | os.PathLike, token: str | int) -> None:
-    """Update the ``LATEST`` pointer (written after the snapshot rename)."""
-    (Path(root) / "LATEST").write_text(str(token))
-
-
-def _read_latest(root: str | os.PathLike) -> str | None:
-    """The raw ``LATEST`` token (a hint to verify), or None when absent."""
-    pointer = Path(root) / "LATEST"
-    if not pointer.exists():
-        return None
-    return pointer.read_text().strip()
 
 
 def _host_rows(summary: SetSummary) -> list[tuple]:
@@ -693,7 +654,7 @@ class SetStore:
                 "buckets": buckets,
             }
             (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
-        _write_latest(root, gen)
+        write_latest(root, gen)
         return root / f"store_{gen}"
 
     @classmethod
@@ -857,7 +818,7 @@ def latest_snapshot(root: str | os.PathLike) -> int | None:
     newest complete ``store_<gen>`` directory (tmp dirs never match).
     """
     root = Path(root)
-    token = _read_latest(root)
+    token = read_latest(root)
     if token is not None:
         try:
             gen = int(token)

@@ -5,9 +5,10 @@ module turns the fields of a reference ``HDConfig`` / ``ProHDConfig`` /
 ``ServeConfig`` / ``EngineConfig`` / ``DriftMonitorConfig`` / ``LMConfig``,
 passed as a plain dict
 (``dataclasses.asdict``), and numpy arrays (clouds,
-masks, projections, directions, a corpus, an LM's parameters) into the
-port's objects, so a test can build both packages' inputs from one dict
-and one set of arrays.  It imports nothing of the reference package.
+masks, projections, directions, a corpus, an LM's parameters, an
+optimizer's or PowerSGD's state) into the port's objects, so a test can
+build both packages' inputs from one dict and one set of arrays.  It
+imports nothing of the reference package.
 """
 from __future__ import annotations
 
@@ -26,6 +27,8 @@ from repro_torch.index.store import SetStore
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.serve.engine import EngineConfig
 from repro_torch.serve.server import ServeConfig
+from repro_torch.train.compression import PowerSGDState
+from repro_torch.train.loop import named_params
 
 __all__ = [
     "BACKEND_NAMES",
@@ -42,6 +45,9 @@ __all__ = [
     "store_from_reference",
     "lm_config_from_dict",
     "lm_params_from_reference",
+    "by_name",
+    "opt_state_from_reference",
+    "powersgd_state_from_reference",
 ]
 
 # Reference name → port name, where they differ (front-door backends and
@@ -159,3 +165,47 @@ def lm_params_from_reference(params_np: dict, cfg: LMConfig, *, device=None) -> 
     model.load_state_dict({k: torch.from_numpy(np.array(v, np.float32)) for k, v in flat.items()},
                           strict=True)
     return model
+
+
+def by_name(tree_np: dict, name: str):
+    """The entry of a reference pytree (nested dicts) under a port name
+    whose dots join the keys: ``"layers.wq"`` → ``tree["layers"]["wq"]``."""
+    for part in name.split("."):
+        tree_np = tree_np[part]
+    return tree_np
+
+
+def _tensor_like(arr, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+def opt_state_from_reference(state_np: dict, model) -> dict:
+    """The port's state of ``train.optimizer``'s ``adamw``, ``adafactor`` or
+    ``sgd`` from the reference's (``jax.tree.map(np.asarray, state)``):
+    each param-shaped subtree (``mu``, ``nu``, ``master``, Adafactor's
+    ``v`` with its ``vr``/``vc`` or ``v`` per leaf) becomes a dict by the
+    port's parameter names, on the parameters' device; ``count`` a 0-d
+    int32 tensor.  ``model`` is what ``loop.fit`` trains: a module or a dict
+    of named tensors."""
+    named = named_params(model)
+    device = next(iter(named.values())).device
+    out = {}
+    for key, sub in state_np.items():
+        if key == "count":
+            out[key] = _tensor_like(np.asarray(sub, np.int32), device)
+        elif key == "v":
+            out[key] = {n: {k: _tensor_like(a, device) for k, a in by_name(sub, n).items()} for n in named}
+        else:
+            out[key] = {n: _tensor_like(by_name(sub, n), device) for n in named}
+    return out
+
+
+def powersgd_state_from_reference(state_np, model) -> PowerSGDState:
+    """The port's ``PowerSGDState`` from the reference's (a ``(q, error)``
+    pair of param-shaped trees as numpy): its factors, drawn by
+    ``jax.random``, and its error feedback, by parameter name."""
+    named = named_params(model)
+    device = next(iter(named.values())).device
+    q_np, err_np = state_np
+    return PowerSGDState(q={n: _tensor_like(by_name(q_np, n), device) for n in named},
+                         error={n: _tensor_like(by_name(err_np, n), device) for n in named})

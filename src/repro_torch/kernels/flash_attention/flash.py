@@ -1,5 +1,5 @@
-"""Flash attention (forward): the hand-written CUDA kernels, their launcher,
-the wrapper and the plain version.
+"""Flash attention: the hand-written CUDA forward kernels, their launcher,
+the wrapper, its autograd Function and the plain version.
 
 Counterpart of ``repro/kernels/flash_attention/flash.py`` (the Pallas
 ``_flash_kernel``, ``flash.py:38``).  All of them compute the chunked
@@ -43,7 +43,19 @@ product, and ``acc / max(l, 1e-30)`` cast to q's dtype.
   ``flash_fwd.launches`` counts every launch and
   ``flash_fwd.route_launches`` each route's.
 * :func:`flash_attention` is the wrapper: a kernel on CUDA tensors, the
-  plain version on CPU tensors, never the one in place of the other.
+  plain version on CPU tensors, never the one in place of the other.  Its
+  output carries no gradient, so on CUDA tensors that require grad, under
+  grad mode, the launcher raises (:func:`repro_torch.kernels.refuse_grad`).
+* :func:`flash_attention_grad` is attention under autograd: the wrapper's
+  forward, unchanged, in a ``torch.autograd.Function`` that saves q, k and
+  v; its backward is :func:`flash_attention_backward_plain`, the
+  reference's own recipe.  The reference has no backward kernel
+  (``repro/kernels/flash_attention/flash.py:18-22``): its chunk body runs
+  under ``jax.checkpoint(body, nothing_saveable)``
+  (``repro/models/layers.py:145-151``), so its backward recomputes each kv
+  chunk's scores from the ``(acc, m, l)`` carry.  The backward here does
+  the same in plain PyTorch; it is not a kernel, and no kernel of the
+  reference stands behind it.
 * :func:`flash_attention_plain` follows the reference's op sequence chunk
   by chunk (it also serves ``layers.causal_attention`` on the CPU).
 
@@ -58,11 +70,13 @@ import operator
 from pathlib import Path
 
 import torch
+import torch.utils.checkpoint
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 
 __all__ = ["NEG", "MAX_HEAD_DIM", "INSTANCES", "ROUTES", "SOURCE", "SOURCE_SM90", "build", "expand_kv",
-           "flash_fwd", "flash_attention", "flash_attention_plain", "instance", "route"]
+           "flash_fwd", "flash_attention", "flash_attention_grad", "flash_attention_backward_plain",
+           "flash_attention_plain", "instance", "route"]
 
 NEG = -1e30  # large-finite: no inf − inf in the online softmax
 MAX_HEAD_DIM = 256
@@ -169,7 +183,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tens
     ``q_offset`` (q[0]'s position) and ``window`` shape the causal mask as
     in ``layers.causal_attention``.  The kernel is :func:`route`'s, at
     :func:`instance`'s head dim (q, k and v zero-padded to it where it is
-    not hd); a failed launch raises."""
+    not hd); a failed launch raises, and so does a call under grad mode
+    with an input that requires grad."""
+    refuse_grad("flash.flash_fwd", q, k, v)
     _check(q, k, v, out)
     b, sq, h, hd = q.shape
     q_offset, window = _mask_args(causal, q_offset, window, sq, k.shape[1])
@@ -234,6 +250,15 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (float64 for float64 inputs) with p rounded to v's dtype before P·V.
     ``q_offset`` is q[0]'s absolute position and ``window`` a sliding
     window, both of the causal mask."""
+    return _recurrence(q, k, v, causal=causal, chunk=chunk, q_offset=q_offset, window=window, remat=False)
+
+
+def _recurrence(q, k, v, *, causal: bool, chunk: int, q_offset: int, window: int | None,
+                remat: bool) -> torch.Tensor:
+    """:func:`flash_attention_plain`; with ``remat`` each kv chunk's step runs
+    under ``torch.utils.checkpoint``, so autograd keeps only the ``(acc, m,
+    l)`` carry between chunks and recomputes the chunk's scores in the
+    backward (the reference's ``jax.checkpoint(body, nothing_saveable)``)."""
     b, sq, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
     if kv == 0 or h % kv:
@@ -250,12 +275,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     wide = torch.promote_types(q.dtype, torch.float32)
     qw = q.to(wide)
     q_pos = q_offset + torch.arange(sq, device=q.device)
-    acc = torch.zeros((b, h, sq, hd), dtype=wide, device=q.device)
-    m = torch.full((b, h, sq), NEG, dtype=wide, device=q.device)
-    l = torch.zeros((b, h, sq), dtype=wide, device=q.device)
-    for j in range(n_chunks):
-        k_j = k[:, j * chunk:(j + 1) * chunk]
-        v_j = v[:, j * chunk:(j + 1) * chunk]
+
+    def body(acc, m, l, k_j, v_j, j):
         s = torch.einsum("bqhd,bchd->bhqc", qw, k_j.to(wide)) * scale
         if causal:
             k_pos = j * chunk + torch.arange(chunk, device=q.device)
@@ -269,6 +290,62 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         acc = acc * corr[..., None] + torch.einsum(
             "bhqc,bchd->bhqd", p.to(v.dtype).to(wide), v_j.to(wide))
         l = l * corr + p.sum(dim=-1)
-        m = m_new
+        return acc, m_new, l
+
+    acc = torch.zeros((b, h, sq, hd), dtype=wide, device=q.device)
+    m = torch.full((b, h, sq), NEG, dtype=wide, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=wide, device=q.device)
+    for j in range(n_chunks):
+        k_j = k[:, j * chunk:(j + 1) * chunk]
+        v_j = v[:, j * chunk:(j + 1) * chunk]
+        if remat:
+            acc, m, l = torch.utils.checkpoint.checkpoint(body, acc, m, l, k_j, v_j, j, use_reentrant=False,
+                                                          preserve_rng_state=False)
+        else:
+            acc, m, l = body(acc, m, l, k_j, v_j, j)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)
+
+
+def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   dout: torch.Tensor, *, causal: bool = True, chunk: int = 512,
+                                   q_offset: int = 0, window: int | None = None):
+    """``(dq, dk, dv)``: the vector-Jacobian product of
+    :func:`flash_attention_plain` (same mask and ``chunk``) at (q, k, v)
+    with ``dout``, each in its input's dtype.
+
+    The reference's backward recipe: the recurrence runs once more, one kv
+    chunk at a time, each chunk's step under ``torch.utils.checkpoint``, so
+    between chunks only the ``(acc, m, l)`` carry is held and each chunk's
+    (B, H, Sq, chunk) scores are recomputed while its gradient is taken;
+    the gradients of a kv head's ``H // KV`` query heads (GQA) sum into it
+    through :func:`expand_kv`'s backward."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = _recurrence(*leaves, causal=causal, chunk=chunk, q_offset=q_offset, window=window, remat=True)
+        return torch.autograd.grad(out, leaves, dout)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: :func:`flash_attention` (kernel 4 on CUDA tensors).
+    Backward: :func:`flash_attention_backward_plain`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, chunk, q_offset, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = {"causal": causal, "chunk": chunk, "q_offset": q_offset, "window": window}
+        return flash_attention(q, k, v, causal=causal, q_offset=q_offset, window=window)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        return (*flash_attention_backward_plain(q, k, v, dout, **ctx.mask), None, None, None, None)
+
+
+def flash_attention_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                         chunk: int = 512, q_offset: int = 0, window: int | None = None) -> torch.Tensor:
+    """:func:`flash_attention` with a gradient: the same forward (kernel 4
+    on CUDA tensors, once per call), and in the backward
+    :func:`flash_attention_backward_plain` over kv chunks of ``chunk``
+    keys."""
+    return _FlashAttention.apply(q, k, v, causal, chunk, q_offset, window)

@@ -65,7 +65,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels.hausdorff import hausdorff as K
 
 __all__ = [
@@ -273,8 +273,10 @@ def batched_minscan(
     or both None for an ungated pass.  ``directed=True`` launches the
     row-min-only instance and leaves ``min_b`` as given.  ``plan``
     overrides :func:`bucket_launch_plan` (for checks that results do not
-    depend on it); a plan that does not fit the pass raises.
+    depend on it); a plan that does not fit the pass raises.  Raises under
+    grad mode when an input requires grad (:func:`repro_torch.kernels.refuse_grad`).
     """
+    refuse_grad("batched.batched_minscan", q, q2, slab, b2, lb, cut)
     if not isinstance(directed, bool):
         raise TypeError(f"directed must be a bool, got {type(directed).__name__}")
     dev = q.device
@@ -524,8 +526,10 @@ def multiquery_minscan(
     (Q, S): contiguous fp32 gate operands, or both None for an ungated pass.
     ``directed=True`` launches the row-min-only instance and leaves
     ``min_b`` as given.  ``plan`` overrides :func:`bucket_launch_plan`; a
-    plan that does not fit the pass raises.
+    plan that does not fit the pass raises.  Raises under grad mode when an
+    input requires grad (:func:`repro_torch.kernels.refuse_grad`).
     """
+    refuse_grad("batched.multiquery_minscan", qs, q2, slab, b2, lb, cut)
     if not isinstance(directed, bool):
         raise TypeError(f"directed must be a bool, got {type(directed).__name__}")
     dev = qs.device

@@ -30,7 +30,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 
 __all__ = ["TILE", "TABLE_BLOCK", "SOURCE", "MAX_SMEM", "LaunchPlan", "build", "smem_bytes",
            "launch_plan", "pair_range", "fused_minscan"]
@@ -194,8 +194,10 @@ def fused_minscan(
     ``TILE``), or all None for an ungated scan.  ``directed=True`` launches
     the row-min-only instance and leaves ``min_b`` as given.  ``plan``
     overrides :func:`launch_plan` (for checks that results do not depend on
-    it).
+    it).  Raises under grad mode when an input requires grad
+    (:func:`repro_torch.kernels.refuse_grad`).
     """
+    refuse_grad("hausdorff.fused_minscan", a, b, a2, b2, lb, cut_a, cut_b)
     if not isinstance(directed, bool):
         raise TypeError(f"directed must be a bool, got {type(directed).__name__}")
     dev = a.device

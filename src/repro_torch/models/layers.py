@@ -16,8 +16,11 @@ bf16 × bf16 → fp32 contraction (TF32 stays off, see
 ``causal_attention`` on a CUDA tensor runs the hand-written flash kernel
 (kernel 4, :func:`repro_torch.kernels.flash_attention.flash.flash_attention`)
 for every case the reference serves: any head dim up to 256, a sliding
-window, a query offset; on the CPU every case runs the plain chunked
-recurrence.  The reference's ``_expand_kv`` is
+window, a query offset; under autograd it goes through
+``flash.flash_attention_grad``, kernel 4's forward with the reference's
+recomputing backward (plain PyTorch, as the reference's is plain JAX).  On
+the CPU every case runs the plain chunked recurrence under ordinary
+autograd.  The reference's ``_expand_kv`` is
 :func:`repro_torch.kernels.flash_attention.flash.expand_kv` (the plain
 recurrence there needs it; the kernel indexes kv heads instead).
 """
@@ -88,11 +91,16 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, spec: At
                      q_offset: int = 0) -> torch.Tensor:
     """Causal attention, q (B, Sq, H, hd), k/v (B, Sk, KV, hd) → (B, Sq, H, hd).
 
-    CUDA: kernel 4, with ``spec.window`` and ``q_offset``.  CPU: the plain
-    chunked recurrence over ``spec.chunk`` keys at a time."""
+    CUDA: kernel 4, with ``spec.window`` and ``q_offset``; when a gradient
+    is recorded, through ``flash.flash_attention_grad``, whose backward
+    recomputes the plain recurrence over ``spec.chunk`` keys at a time.
+    CPU: the plain chunked recurrence over ``spec.chunk`` keys at a time."""
     if q.device.type == "cpu":
         return F.flash_attention_plain(q, k, v, causal=True, chunk=spec.chunk,
                                        q_offset=q_offset, window=spec.window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return F.flash_attention_grad(q, k, v, causal=True, chunk=spec.chunk, q_offset=q_offset,
+                                      window=spec.window)
     return F.flash_attention(q, k, v, causal=True, q_offset=q_offset, window=spec.window)
 
 

@@ -1,25 +1,35 @@
-"""Decoder-only transformer LM of the port: prefill and cached decode.
+"""Decoder-only transformer LM of the port: training, prefill and cached decode.
 
-Counterpart of ``repro/models/transformer.py`` for the serving path of the
-dense and MoE LMs.  :class:`TransformerLM` holds the reference's parameter
-dict under the same names and shapes — ``embed``, ``out``, ``final_norm``
-and ``layers.{ln1, ln2, wq, wk, wv, wo, wi_gate, wi_up, wo_ffn}`` stacked
-on a leading L axis; an MoE config adds ``layers.router`` (L, D, E), kept
-in fp32 whatever ``cfg.dtype`` is, and stacks the FFN weights per expert
+Counterpart of ``repro/models/transformer.py`` for the dense and MoE LMs.
+:class:`TransformerLM` holds the reference's parameter dict under the same
+names and shapes — ``embed``, ``out``, ``final_norm`` and
+``layers.{ln1, ln2, wq, wk, wv, wo, wi_gate, wi_up, wo_ffn}`` stacked on a
+leading L axis; an MoE config adds ``layers.router`` (L, D, E), kept in
+fp32 whatever ``cfg.dtype`` is, and stacks the FFN weights per expert
 (L, E, D, F) / (L, E, F, D) — so weights carry across name for name
 (``repro_torch.interop.lm_params_from_reference``).  The functions keep the
 reference's names and signatures, with the module in place of the params
 pytree.
 
-The layer stack is a Python loop over L: ``lax.scan`` and
-``jax.checkpoint`` have no counterpart in a forward pass.  The KV cache is
-updated in place (the reference returns a new one).  Prefill attention
-runs through the hand-written flash kernel on the card (kernel 4, once per
-layer, see ``models.layers.causal_attention``); decode attention is plain
-PyTorch, as the reference's is plain JAX.  An MoE layer's FFN is GShard
-``layers.moe_block`` in the forward pass (its aux loss averaged over the
-layers) and ``layers.moe_dense_decode`` in decode.  ``lm_loss`` and the
-sharding specs wait with training and sharding.
+Every parameter takes a gradient.  ``lm_forward``, ``lm_logits`` and
+``lm_loss`` run under the caller's grad mode; ``prefill_step`` and
+``serve_step`` never record one.  The layer stack is a Python loop over L
+in place of ``lax.scan``: each stacked parameter is taken apart once per
+forward (``unbind(0)``, whose backward writes one stacked gradient, where
+indexing per layer would write a full-size zero tensor per layer), and
+with ``cfg.remat`` each layer runs under ``torch.utils.checkpoint`` when a
+gradient is recorded — the reference's ``jax.checkpoint(...,
+nothing_saveable)``: only the layer inputs are kept, and the backward runs
+the layer's forward again.
+
+The KV cache is updated in place (the reference returns a new one).  On the
+card every layer's attention in a forward pass runs kernel 4, the
+hand-written flash kernel (see ``models.layers.causal_attention``; under
+autograd its backward recomputes the plain chunk body); decode attention
+is plain PyTorch, as the reference's is plain JAX.  An MoE layer's FFN is
+GShard ``layers.moe_block`` in the forward pass (its aux loss averaged over
+the layers) and ``layers.moe_dense_decode`` in decode.  The sharding specs
+wait with sharding.
 """
 from __future__ import annotations
 
@@ -27,13 +37,14 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.device import as_tensor, lm_precision, resolve_device
 from repro_torch.models import layers as L
 
-__all__ = ["TransformerLM", "init_lm_params", "lm_forward", "lm_logits", "prefill_step",
+__all__ = ["TransformerLM", "init_lm_params", "lm_forward", "lm_logits", "lm_loss", "prefill_step",
            "KVCache", "init_kv_cache", "serve_step"]
 
 
@@ -61,7 +72,7 @@ class TransformerLM(nn.Module):
     """A decoder-only LM's parameters (zeros until filled) on one device:
     ``cuda`` unless ``device`` says otherwise.  Every parameter is in
     ``cfg.dtype`` but an MoE router, which is fp32 as the reference's.
-    Serving only: no parameter takes a gradient."""
+    Every parameter takes a gradient."""
 
     def __init__(self, cfg: LMConfig, *, device=None):
         super().__init__()
@@ -69,7 +80,7 @@ class TransformerLM(nn.Module):
         self.cfg = cfg
 
         def param(shape, dtype=cfg.dtype):
-            return nn.Parameter(torch.zeros(shape, dtype=dtype, device=dev), requires_grad=False)
+            return nn.Parameter(torch.zeros(shape, dtype=dtype, device=dev))
 
         shapes = _param_shapes(cfg)
         self.embed = param(shapes["embed"])
@@ -118,11 +129,12 @@ def _attn_spec(cfg: LMConfig) -> L.AttnSpec:
 
 
 def _layer(params: TransformerLM, i: int) -> dict[str, torch.Tensor]:
+    """Layer i's parameters (decode, under no_grad)."""
     return {n: p[i] for n, p in params.layers.items()}
 
 
 def _layer_fwd(cfg: LMConfig, x, lp, positions):
-    """One transformer block (prefill path).  x: (B, S, D).  Returns x and
+    """One transformer block (training and prefill path).  x: (B, S, D).  Returns x and
     the layer's aux loss (fp32; 0 for a dense FFN)."""
     b, s_len, _ = x.shape
     hd = cfg.head_dim
@@ -145,27 +157,49 @@ def _layer_fwd(cfg: LMConfig, x, lp, positions):
     return x + y.to(x.dtype), aux
 
 
-@torch.no_grad()
 @lm_precision()
 def lm_forward(params: TransformerLM, tokens, cfg: LMConfig):
     """Token ids (B, S) → final hidden states (B, S, D) and the mean aux
-    loss over the layers (fp32; 0 for a dense model)."""
+    loss over the layers (fp32; 0 for a dense model).  With ``cfg.remat``
+    and a gradient recorded, each layer is recomputed in the backward."""
     tokens = _tokens(tokens, params)
     x = _embed(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=x.device)
+    stacked = {n: p.unbind(0) for n, p in params.layers.items()}
+    remat = cfg.remat and torch.is_grad_enabled()
     auxes = []
     for i in range(cfg.n_layers):
-        x, aux = _layer_fwd(cfg, x, _layer(params, i), positions)
+        lp = {n: ps[i] for n, ps in stacked.items()}
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(_layer_fwd, cfg, x, lp, positions, use_reentrant=False,
+                                                       preserve_rng_state=False)
+        else:
+            x, aux = _layer_fwd(cfg, x, lp, positions)
         auxes.append(aux)
     x = L.rmsnorm(x, params.final_norm, cfg.norm_eps)
     return x, torch.mean(torch.stack(auxes))
 
 
-@torch.no_grad()
 @lm_precision()
 def lm_logits(params: TransformerLM, hidden: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     """Hidden states (..., D) → logits (..., V), fp32."""
     return L.matmul_wide(hidden, params.out)
+
+
+def lm_loss(params: TransformerLM, batch: dict, cfg: LMConfig):
+    """Next-token cross entropy.  batch: tokens (B, S+1) int.  Returns
+    ``(ce + 0.01·aux, {"ce_loss": ce, "aux_loss": aux})``, as the reference.
+
+    The log-likelihood of each target is gathered from the fp32
+    ``log_softmax``: the same values as the reference's one-hot
+    contraction, which it chose to keep a vocab-sharded axis local."""
+    tokens = _tokens(batch["tokens"], params)
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    hidden, aux = lm_forward(params, inputs, cfg)
+    logp = torch.log_softmax(lm_logits(params, hidden, cfg), dim=-1)
+    ll = torch.gather(logp, -1, targets[..., None].long())[..., 0]
+    loss = -torch.mean(ll)
+    return loss + 0.01 * aux, {"ce_loss": loss, "aux_loss": aux}
 
 
 @torch.no_grad()

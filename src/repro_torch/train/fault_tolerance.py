@@ -1,22 +1,26 @@
-"""Fault tolerance: heartbeats and retry-with-restore.
+"""Fault tolerance: retry-with-restore, heartbeats, straggler detection.
 
-The port's own copy of the part of ``repro/train/fault_tolerance.py`` that
-the serving layer uses: :class:`Heartbeat`, :func:`run_with_recovery` and
-``RETRYABLE_DEFAULT``.  The hang monitor and straggler detector come with
-the training loop.
+Counterpart of ``repro/train/fault_tolerance.py``.  The training loop
+(``repro_torch.train.loop.fit``) wires these together, and the serving
+layer uses the heartbeat and the retry:
 
-  * every completed request (or step) bumps a Heartbeat, with its wall
-    time; an external watchdog reads the payload,
-  * ``run_with_recovery`` catches failures, restores, and resumes — up to
-    ``max_failures`` times, with exponential backoff.
+  * every step (or completed request) bumps a :class:`Heartbeat`, with its
+    wall time; :class:`HeartbeatMonitor`, a watchdog thread, flags a hang,
+  * :func:`run_with_recovery` catches failures, restores, and resumes — up
+    to ``max_failures`` times, with exponential backoff,
+  * :class:`StragglerDetector` tracks per-step wall time and flags outliers
+    (z-score over a rolling window).
 """
 from __future__ import annotations
 
+import collections
+import dataclasses
 import threading
 import time
 from typing import Callable
 
-__all__ = ["Heartbeat", "StepFailure", "RETRYABLE_DEFAULT", "run_with_recovery"]
+__all__ = ["Heartbeat", "HeartbeatMonitor", "StragglerDetector", "StepFailure", "RETRYABLE_DEFAULT",
+           "run_with_recovery"]
 
 
 class Heartbeat:
@@ -76,6 +80,61 @@ class Heartbeat:
             return self._total_wall_s
 
 
+class HeartbeatMonitor:
+    """Background thread that calls ``on_hang`` if no beat for ``timeout``s."""
+
+    def __init__(self, hb: Heartbeat, timeout: float, on_hang: Callable[[], None]):
+        self.hb = hb
+        self.timeout = timeout
+        self.on_hang = on_hang
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def start(self):
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=5)
+
+    def _run(self):
+        while not self._stop.wait(min(1.0, self.timeout / 4)):
+            if self.hb.age > self.timeout:
+                self.on_hang()
+                return
+
+
+@dataclasses.dataclass
+class StragglerDetector:
+    """Rolling z-score on step durations.  ``observe`` returns True when the
+    step is a straggler (z > threshold after warmup)."""
+
+    window: int = 64
+    threshold: float = 3.0
+    warmup: int = 8
+
+    def __post_init__(self):
+        self._times: collections.deque[float] = collections.deque(maxlen=self.window)
+        self.events: list[tuple[int, float]] = []
+        self._step = 0
+
+    def observe(self, duration: float) -> bool:
+        self._step += 1
+        is_straggler = False
+        if len(self._times) >= self.warmup:
+            mean = sum(self._times) / len(self._times)
+            var = sum((t - mean) ** 2 for t in self._times) / len(self._times)
+            std = max(var ** 0.5, 1e-9)
+            if (duration - mean) / std > self.threshold:
+                is_straggler = True
+                self.events.append((self._step, duration))
+        # stragglers don't poison the baseline window
+        if not is_straggler:
+            self._times.append(duration)
+        return is_straggler
+
+
 class StepFailure(RuntimeError):
     pass
 
@@ -100,7 +159,8 @@ def run_with_recovery(
     """Drive ``run_fn(start_step)`` with restore-on-failure.
 
     ``restore_fn() -> step`` reloads the latest state and returns the step
-    to resume from.  ``repro_torch.serve`` uses it for per-request retry:
+    to resume from.  ``repro_torch.train.loop.fit`` drives its steps with
+    it; ``repro_torch.serve`` uses it for per-request retry:
     ``retryable=(TransientFault,)`` retries ONLY the typed transient
     faults, with exponential backoff ``backoff_s · 2^(failures−1)``
     between attempts (``sleep`` is injectable so tests never wall-clock

@@ -1,0 +1,164 @@
+"""The reference's optimizers in PyTorch: AdamW, Adafactor and SGD.
+
+Counterpart of ``repro/train/optimizer.py``.  The reference writes its own
+optimizers (no optax), and those functions are the specification here, not
+``torch.optim``: the same ``init(params) → state`` / ``update(grads, state,
+params) → (params, state)`` shape and the same arithmetic, op for op, in
+fp32 — bias corrections from an int32 step count cast to fp32, the fp32
+master copy with ``master_fp32`` (the live parameters may be bf16),
+Adafactor's factored row/column statistics wherever the last two dims are
+both > 1, its ``eps`` of 1e-30 and RMS update clipping.
+
+``params`` and ``grads`` are dicts of named tensors (``dict(model.
+named_parameters())``; the reference's nested pytree flattened with ``.``),
+and the state a dict of such dicts.  ``update`` writes each new parameter
+into its tensor in place under ``torch.no_grad()`` and returns the same
+dict: a module's parameters stay the module's.  ``state_specs`` waits with
+sharding.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+__all__ = ["Optimizer", "adamw", "adafactor", "sgd"]
+
+
+class Optimizer(NamedTuple):
+    init: Callable[[dict], dict]
+    update: Callable[[dict, dict, dict], tuple[dict, dict]]  # (grads, state, params) → (params, new state)
+
+
+def _zeros32(params: dict) -> dict:
+    return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for n, p in params.items()}
+
+
+def _master_copy(params: dict) -> dict:
+    # a copy even for fp32 parameters: the master must not alias them
+    return {n: p.detach().to(torch.float32, copy=True) for n, p in params.items()}
+
+
+@torch.no_grad()
+def _write(params: dict, master: dict) -> dict:
+    """Each parameter ← its master, cast to the parameter's dtype."""
+    for n, p in params.items():
+        p.copy_(master[n].to(p.dtype))
+    return params
+
+
+def _count_and_masters(state: dict, params: dict):
+    count = state["count"] + 1
+    masters = state.get("master") or {n: p.detach().to(torch.float32) for n, p in params.items()}
+    return count, masters
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+# ---------------------------------------------------------------------------
+
+
+def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+          weight_decay: float = 0.1, master_fp32: bool = True) -> Optimizer:
+    def init(params: dict) -> dict:
+        dev = next(iter(params.values())).device
+        state = {"mu": _zeros32(params), "nu": _zeros32(params),
+                 "count": torch.zeros((), dtype=torch.int32, device=dev)}
+        if master_fp32:
+            state["master"] = _master_copy(params)
+        return state
+
+    @torch.no_grad()
+    def update(grads: dict, state: dict, params: dict):
+        count, masters = _count_and_masters(state, params)
+        c1 = 1.0 - b1 ** count.to(torch.float32)
+        c2 = 1.0 - b2 ** count.to(torch.float32)
+        mu, nu, master = {}, {}, {}
+        for n, g in grads.items():
+            g = g.to(torch.float32)
+            mu[n] = b1 * state["mu"][n] + (1 - b1) * g
+            nu[n] = b2 * state["nu"][n] + (1 - b2) * g * g
+            step = (mu[n] / c1) / (torch.sqrt(nu[n] / c2) + eps)
+            master[n] = masters[n] - lr * (step + weight_decay * masters[n])
+        new_state = {"mu": mu, "nu": nu, "count": count}
+        if master_fp32:
+            new_state["master"] = master
+        return _write(params, master), new_state
+
+    return Optimizer(init, update)
+
+
+# ---------------------------------------------------------------------------
+# Adafactor (Shazeer & Stern 2018) — factored second moment, no momentum
+# ---------------------------------------------------------------------------
+
+
+def _factored(shape) -> bool:
+    return len(shape) >= 2 and shape[-1] > 1 and shape[-2] > 1
+
+
+def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30, clip_threshold: float = 1.0,
+              weight_decay: float = 0.0, master_fp32: bool = True) -> Optimizer:
+    def init(params: dict) -> dict:
+        def mk(p):
+            z = dict(dtype=torch.float32, device=p.device)
+            if _factored(p.shape):
+                return {"vr": torch.zeros(p.shape[:-1], **z),                       # row stats
+                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **z)}        # col stats
+            return {"v": torch.zeros(p.shape, **z)}
+
+        dev = next(iter(params.values())).device
+        state = {"v": {n: mk(p) for n, p in params.items()},
+                 "count": torch.zeros((), dtype=torch.int32, device=dev)}
+        if master_fp32:
+            state["master"] = _master_copy(params)
+        return state
+
+    @torch.no_grad()
+    def update(grads: dict, state: dict, params: dict):
+        count, masters = _count_and_masters(state, params)
+        beta = 1.0 - count.to(torch.float32) ** -decay
+        new_v, master = {}, {}
+        for n, g in grads.items():
+            v = state["v"][n]
+            g = g.to(torch.float32)
+            g2 = g * g + eps
+            if "vr" in v:
+                vr = beta * v["vr"] + (1 - beta) * torch.mean(g2, dim=-1)
+                vc = beta * v["vc"] + (1 - beta) * torch.mean(g2, dim=-2)
+                denom = torch.sqrt(vr[..., None] * vc[..., None, :] / torch.clamp(
+                    torch.mean(vr, dim=-1, keepdim=True)[..., None], min=eps))
+                new_v[n] = {"vr": vr, "vc": vc}
+            else:
+                nv = beta * v["v"] + (1 - beta) * g2
+                denom = torch.sqrt(nv)
+                new_v[n] = {"v": nv}
+            step = g / torch.clamp(denom, min=eps)
+            # RMS update clipping
+            rms = torch.sqrt(torch.mean(step * step) + eps)
+            step = step / torch.clamp(rms / clip_threshold, min=1.0)
+            master[n] = masters[n] - lr * (step + weight_decay * masters[n])
+        new_state = {"v": new_v, "count": count}
+        if master_fp32:
+            new_state["master"] = master
+        return _write(params, master), new_state
+
+    return Optimizer(init, update)
+
+
+def sgd(lr: float = 0.1, momentum: float = 0.0) -> Optimizer:
+    """Plain SGD (with heavy-ball momentum when ``momentum`` is nonzero)."""
+
+    def init(params: dict) -> dict:
+        return {"mu": _zeros32(params)} if momentum else {}
+
+    @torch.no_grad()
+    def update(grads: dict, state: dict, params: dict):
+        if momentum:
+            mu = {n: momentum * state["mu"][n] + g.to(torch.float32) for n, g in grads.items()}
+            _write(params, {n: p.to(torch.float32) - lr * mu[n] for n, p in params.items()})
+            return params, {"mu": mu}
+        _write(params, {n: p.to(torch.float32) - lr * grads[n].to(torch.float32) for n, p in params.items()})
+        return params, state
+
+    return Optimizer(init, update)
