@@ -216,10 +216,39 @@ Training (TinyLlama-1.1B, random bf16 weights from the seed):
      ``python -m repro_torch.launch.train --arch tinyllama-1.1b --steps 4``
      as a subprocess (the fp32 smoke config, route "ffma"), exit code 0.
 
+GNN and recsys (no kernel lies on their paths; random fp32 weights from
+the seed, the configs' published widths):
+  17. GAT (gat-cora: 2 layers, 8 heads × 8, 7 classes) at each GNN_SHAPES
+     cell: full_graph_sm (2,708 nodes, 10,556 edges + self-loops, d_feat
+     1,433: logits within 1e-4 relative L2 of float64, then 4 fit steps,
+     AdamW lr 1e-3, weight decay 0.01); minibatch_lg (CSRGraph.random at
+     232,965 nodes, ~114.6 M edges, d_feat 602, on the host; 4 fit steps
+     on minibatch_iterator subgraphs of 1,024 seeds, fanouts 15 and 10,
+     one subgraph's logits against float64, the host sampler's share of
+     each step); ogb_products (2,449,029 nodes, 61,859,140 edges +
+     self-loops, d_feat 100: one forward under no_grad, finite, its time
+     and peak memory); molecule (128 graphs × 30 nodes × 64 edges, d_feat
+     16: 4 fit steps of gat_graph_loss);
+  18. FM, DIEN, BERT4Rec and BST at full size, each RECSYS_SHAPES cell:
+     serve_p99 (score at 512, median of 10 synchronised calls, within 1e-4
+     relative L2 of float64), serve_bulk (262,144; BERT4Rec 32,768; rows/s
+     and peak memory), retrieval_cand (query_embedding at batch 1,
+     retrieval_topk over 1,000,000 candidates at k 10, dot and l2: values
+     within the fp32 bound of float64, ids float64's where its 10th and
+     11th scores lie further apart), train_batch (4 fit steps at 65,536;
+     DIEN 16,384 and BERT4Rec 8,192: wall time, examples/s, peak memory),
+     gradients at batch 256 within 1e-4 relative L2 per tensor of float64;
+     then sharded_lookup, sharded retrieval_topk and
+     gat_forward_partitioned on one NCCL rank over a (1, 1) DeviceMesh,
+     each against its unsharded call; and ``python -m
+     repro_torch.launch.train --arch gat-cora`` and ``--arch dien`` (4
+     steps each) as subprocesses, exit code 0.
+
 Each main path (phases 4-6: set_distance; 6b, 6c and 6d, each its own;
 phase 7b's two-sweep call; phase 8: search; phases 10 and 10b:
 search_batch; 10c: shards=1; phase 11: the served paths; phases 14 and
-14b: each prefill_step and each decode loop; phase 16: the fit call)
+14b: each prefill_step and each decode loop; phase 16: the fit call;
+phases 17, 18 and the NCCL forms: each, with no launch allowed)
 runs with the kernels' launch counters set to 0 just before it and read
 just after; launches made only to compare a kernel with its plain version
 are taken back out.
@@ -426,6 +455,35 @@ ATTN_GRAD_CASES = tuple(
 N_EARLYBREAK = 4_096
 # Phase 11b: the profiled search runs on a corpus of this many sets.
 N_OBS_SETS = 512
+# Phases 17 and 18 (GNN and recsys): the reference's cells (GNN_SHAPES and
+# RECSYS_SHAPES of configs/base.py) at the configs' published widths, random
+# fp32 weights from the seed.  CELL_DIMS overrides a cell's dims (a CPU
+# rehearsal shrinks them); every GNN cell uses the config's 7 classes.
+GNN_ARCH = "gat-cora"
+CELL_DIMS: dict = {}
+GNN_STEPS = 4
+# CSRGraph.random's mean degree is about avg_degree / 2 + 1 (a Pareto(2)
+# draw scaled by avg_degree / 2, plus one): 982 gives ~114.6 M edges over
+# minibatch_lg's 232,965 nodes.
+MINIBATCH_AVG_DEGREE = 982
+RECSYS_ARCHS = ("fm", "dien", "bert4rec", "bst")
+RECSYS_STEPS = 4
+# train_batch is 65,536; DIEN's 200 recurrent steps keep ~340 MB each for the
+# backward at that batch (68 GB), BERT4Rec's blocks 42 GB each of scores and
+# softmax: both cut.  serve_bulk is 262,144; BERT4Rec's (B, 2, 200, 200) fp32
+# scores would be 84 GB there: cut.
+RECSYS_TRAIN_BATCH = {"fm": 65_536, "dien": 16_384, "bert4rec": 8_192, "bst": 65_536}
+RECSYS_BULK_BATCH = {"fm": 262_144, "dien": 262_144, "bert4rec": 32_768, "bst": 262_144}
+RECSYS_SERVE_BATCH = 512
+RECSYS_GRAD_BATCH = 256
+SERVE_REPS = 10
+N_CANDIDATES = 1_000_000
+K_RETRIEVAL = 10
+# fp32 gradients against float64, relative L2 per parameter tensor (relative
+# to 1% of the whole gradient's norm where a tensor's own is smaller: a
+# gradient that is zero in exact arithmetic is rounding noise).  Derivation
+# in PERF.md §6 (the GNN and recsys slice).
+GRAD64_TOL = 1e-4
 
 
 def emit(obj) -> None:
@@ -3443,6 +3501,430 @@ def phase_train_launcher() -> dict:
     return out
 
 
+def cell_dims(arch: str) -> dict:
+    """{cell name: dims} of an arch's shape cells, with CELL_DIMS's overrides."""
+    from repro_torch.configs.base import load_arch
+
+    return {c.name: {**c.dims, **CELL_DIMS.get(c.name, {})} for c in load_arch(arch).shapes}
+
+
+def model_config(arch: str):
+    """The arch's published config (a CPU rehearsal replaces this)."""
+    from repro_torch.configs.base import load_arch
+
+    return load_arch(arch).config
+
+
+def as_float64(model):
+    """A float64 copy of a model's parameters (the card's float64 oracle)."""
+    import copy
+
+    return copy.deepcopy(model).double()
+
+
+def peak_gb() -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def host_ms(call, reps: int) -> tuple[float, list]:
+    """One warm-up call, then ``reps`` calls each timed on the host clock
+    between device synchronisations: (median ms, the runs)."""
+    import torch
+
+    call()
+    runs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(runs), runs
+
+
+def fit_steps(model, loss_fn, make_batch, steps: int, examples: int) -> dict:
+    """``train.loop.fit`` for ``steps`` AdamW steps (lr 1e-3, weight decay
+    0.01, the reference launcher's), no checkpoint: per step loss, wall
+    time (fit's ``dt``: the batch and the step, device synchronised),
+    examples/s; peak memory over the steps."""
+    import math
+
+    import torch
+
+    from repro_torch.train import optimizer
+    from repro_torch.train.loop import TrainConfig, fit
+
+    recs = []
+
+    def data_iter(start):
+        i = start
+        while True:
+            yield make_batch(i)
+            i += 1
+
+    def log_fn(step, rec):
+        recs.append({"step": step, "loss": rec["loss"], "grad_norm": rec["grad_norm"], "wall_s": rec["dt"],
+                     "examples_per_s": examples / rec["dt"]})
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fit(params=model, optimizer=optimizer.adamw(lr=1e-3, weight_decay=0.01), loss_fn=loss_fn,
+        data_iter_fn=data_iter, cfg=TrainConfig(steps=steps, log_every=1, ckpt_every=0), log_fn=log_fn)
+    torch.cuda.synchronize()
+    assert [r["step"] for r in recs] == list(range(steps)), recs
+    assert all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in recs), recs
+    return {"steps": recs, "fit_wall_s": time.perf_counter() - t0, "peak_gb": peak_gb(),
+            "examples_per_step": examples}
+
+
+def loss_grads_vs_float64(model, loss_fn, batch) -> dict:
+    """fp32 gradients of ``loss_fn`` against a float64 copy's on the same
+    batch, relative L2 per parameter tensor (GRAD64_TOL, see there)."""
+    import torch
+
+    named = dict(model.named_parameters())
+    loss, _ = loss_fn(model, batch)
+    grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+    m64 = as_float64(model)
+    named64 = dict(m64.named_parameters())
+    loss64, _ = loss_fn(m64, batch)
+    grads64 = dict(zip(named64, torch.autograd.grad(loss64, list(named64.values()))))
+    total = float(torch.sqrt(sum(torch.sum(g * g) for g in grads64.values())))
+    per = {}
+    for n, g in grads.items():
+        want = grads64[n]
+        err = float(torch.linalg.vector_norm(g.double() - want))
+        per[n] = err / max(float(torch.linalg.vector_norm(want)), 1e-2 * total)
+    worst = max(per, key=per.get)
+    out = {"loss": loss.item(), "loss64": loss64.item(), "max_rel": per[worst], "worst": worst,
+           "tol": GRAD64_TOL, "tensors": len(per)}
+    assert out["max_rel"] <= GRAD64_TOL and abs(out["loss"] - out["loss64"]) <= 1e-4 * abs(out["loss64"]), out
+    del m64, grads64, grads
+    return out
+
+
+def gat_float64(model, batch, cfg) -> dict:
+    """GAT's logits against the same weights and features in float64."""
+    import torch
+
+    from repro_torch.models import gnn as G
+
+    with torch.no_grad():
+        logits = G.gat_forward(model, batch, cfg)
+        want = G.gat_forward(as_float64(model), {**batch, "feats": batch["feats"].double()}, cfg)
+    err = rel_l2(logits, want)
+    assert bool(torch.isfinite(logits).all()) and err <= FP32_LOGIT_TOL, err
+    return {"rel_l2": err, "tol": FP32_LOGIT_TOL}
+
+
+def phase_gnn(seed: int) -> dict:
+    """Phase 17: GAT (gat-cora's config) at each GNN_SHAPES cell."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import graphs, synth
+    from repro_torch.data.pointclouds import make_generator
+    from repro_torch.models import gnn as G
+
+    cfg = model_config(GNN_ARCH)
+    cells = cell_dims(GNN_ARCH)
+    c = cfg.n_classes
+    out = {"arch": GNN_ARCH, "n_classes": c}
+
+    # full_graph_sm: the whole graph, forward against float64, then fit.
+    d = cells["full_graph_sm"]
+    gen = make_generator(seed + 40, DEVICE)
+    model = G.init_gat_params(gen, cfg, d["d_feat"], c)
+    batch = synth.gnn_batch(gen, cfg, n_nodes=d["n_nodes"], n_edges=d["n_edges"], d_feat=d["d_feat"], n_classes=c)
+    rec = {"dims": d, "float64": gat_float64(model, batch, cfg)}
+    with torch.no_grad():
+        rec["forward_ms"], _ = host_ms(lambda: G.gat_forward(model, batch, cfg), 5)
+    rec["train"] = fit_steps(model, lambda p, b: G.gat_node_loss(p, b, cfg), lambda i: batch, GNN_STEPS,
+                             d["n_nodes"])
+    emit({"phase": "gnn", "cell": "full_graph_sm", **rec})
+    out["full_graph_sm"] = rec
+
+    # minibatch_lg: a Reddit-scale CSR graph on the host, fanout-sampled subgraphs.
+    d = cells["minibatch_lg"]
+    t0 = time.perf_counter()
+    graph = graphs.CSRGraph.random(np.random.default_rng(seed + 41), d["n_nodes"], MINIBATCH_AVG_DEGREE,
+                                   d["d_feat"], c)
+    rec = {"dims": d, "graph_build_s": time.perf_counter() - t0, "graph_edges": graph.n_edges,
+           "graph_host_gb": (graph.indices.nbytes + graph.feats.nbytes + graph.indptr.nbytes) / 1e9}
+    it = graphs.minibatch_iterator(graph, d["batch_nodes"], (d["fanout0"], d["fanout1"]), seed=seed)
+    host = []
+
+    def subgraph(_):
+        t0 = time.perf_counter()
+        sub = next(it)
+        t1 = time.perf_counter()
+        b = {k: torch.from_numpy(v).to(DEVICE) for k, v in sub.items()}
+        torch.cuda.synchronize()
+        host.append({"sample_s": t1 - t0, "to_device_s": time.perf_counter() - t1})
+        return b
+
+    first = subgraph(-1)
+    n_sub = d["batch_nodes"] * (1 + d["fanout0"] + d["fanout0"] * d["fanout1"])
+    assert first["feats"].shape == (n_sub, d["d_feat"]), first["feats"].shape
+    rec["subgraph"] = {"nodes": n_sub, "edges": int(first["edge_src"].shape[0]),
+                       "real_edges": int(first["edge_mask"].sum())}
+    model = G.init_gat_params(gen, cfg, d["d_feat"], c)
+    rec["float64"] = gat_float64(model, first, cfg)
+    rec["train"] = fit_steps(model, lambda p, b: G.gat_node_loss(p, b, cfg), subgraph, GNN_STEPS,
+                             d["batch_nodes"])
+    rec["host"] = host[1:]
+    shares = [(h["sample_s"] + h["to_device_s"]) / s["wall_s"] for h, s in zip(host[1:], rec["train"]["steps"])]
+    rec["sampler_share"] = shares
+    rec["sampler_share_median"] = statistics.median(shares)
+    del graph, it, first
+    emit({"phase": "gnn", "cell": "minibatch_lg", **rec})
+    out["minibatch_lg"] = rec
+
+    # ogb_products: one forward over the whole graph, no gradient.
+    d = cells["ogb_products"]
+    n, e = d["n_nodes"], d["n_edges"]
+    src = torch.randint(0, n, (e,), generator=gen, device=DEVICE, dtype=torch.int32)
+    dst = torch.randint(0, n, (e,), generator=gen, device=DEVICE, dtype=torch.int32)
+    src, dst, mask = G.with_self_loops(src, dst, n)
+    batch = {"feats": torch.randn((n, d["d_feat"]), generator=gen, device=DEVICE), "edge_src": src,
+             "edge_dst": dst, "edge_mask": mask}
+    model = G.init_gat_params(gen, cfg, d["d_feat"], c)
+    runs = []
+    with torch.no_grad():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            logits = G.gat_forward(model, batch, cfg)
+            torch.cuda.synchronize()
+            runs.append({"wall_s": time.perf_counter() - t0, "peak_gb": peak_gb()})
+            assert logits.shape == (n, c) and bool(torch.isfinite(logits).all())
+            del logits
+    rec = {"dims": d, "edges_with_loops": int(src.shape[0]), "forward": runs,
+           "edges_per_s": src.shape[0] / runs[-1]["wall_s"]}
+    del batch, src, dst, mask
+    torch.cuda.empty_cache()
+    emit({"phase": "gnn", "cell": "ogb_products", **rec})
+    out["ogb_products"] = rec
+
+    # molecule: 128 graphs of 30 nodes and 64 edges, graph classification.
+    d = cells["molecule"]
+    model = G.init_gat_params(gen, cfg, d["d_feat"], c)
+
+    def molecules(i):
+        return synth.gnn_batch(make_generator(seed + 1000 + i, DEVICE), cfg, n_nodes=d["n_nodes"] * d["batch"],
+                               n_edges=d["n_edges"] * d["batch"], d_feat=d["d_feat"], n_classes=c,
+                               n_graphs=d["batch"])
+
+    rec = {"dims": d, "train": fit_steps(model, lambda p, b: G.gat_graph_loss(p, b, cfg), molecules, GNN_STEPS,
+                                          d["batch"])}
+    emit({"phase": "gnn", "cell": "molecule", **rec})
+    out["molecule"] = rec
+    torch.cuda.empty_cache()
+    return out
+
+
+def retrieval_vs_float64(table, q, table64, q64, metric: str) -> dict:
+    """``retrieval_topk`` at K_RETRIEVAL against float64 scores: every value
+    within the fp32 bound (FP32_LOGIT_TOL of the score's scale: |q|·max|c|
+    for dot, (|q| + max|c|)² for l2), and the ids those of float64 wherever
+    the K-th and (K+1)-th float64 scores lie further apart than the bound."""
+    import torch
+
+    from repro_torch.models.retrieval import retrieval_topk
+
+    top = retrieval_topk(table, q, K_RETRIEVAL, metric=metric)
+    want = retrieval_topk(table64, q64, K_RETRIEVAL + 1, metric=metric)
+    qn = float(torch.linalg.vector_norm(q64))
+    cn = float(torch.linalg.vector_norm(table64, dim=1).max())
+    bound = FP32_LOGIT_TOL * (qn * cn if metric == "dot" else (qn + cn) ** 2)
+    err = float((top.scores.double() - want.scores[:, :K_RETRIEVAL]).abs().max())
+    gap = float((want.scores[:, K_RETRIEVAL - 1] - want.scores[:, K_RETRIEVAL]).min())
+    ids_equal = torch.equal(top.ids, want.ids[:, :K_RETRIEVAL])
+    assert err <= bound, (metric, err, bound)
+    assert ids_equal or gap <= bound, (metric, top.ids, want.ids, gap, bound)
+    return {"max_abs_err": err, "bound": bound, "kth_gap64": gap, "ids_equal": ids_equal}
+
+
+def phase_recsys(seed: int) -> dict:
+    """Phase 18: FM, DIEN, BERT4Rec and BST at their published sizes, each
+    cell of RECSYS_SHAPES."""
+    import torch
+
+    from repro_torch.data import synth
+    from repro_torch.data.pointclouds import make_generator
+    from repro_torch.models import recsys as R
+    from repro_torch.models.retrieval import retrieval_topk
+
+    cells = cell_dims(RECSYS_ARCHS[0])
+    out = {}
+    for i, arch in enumerate(RECSYS_ARCHS):
+        cfg = model_config(arch)
+        init, _, loss, score, qemb, cands = R.get_model(cfg)
+        gen = make_generator(seed + 50 + i, DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = init(gen, cfg)
+        torch.cuda.synchronize()
+        rec = {"arch": arch, "init_s": time.perf_counter() - t0,
+               "params_m": sum(p.numel() for p in model.parameters()) / 1e6,
+               "params_gb": sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9}
+
+        # serve_p99: the median of SERVE_REPS synchronised calls after a warm-up.
+        b = synth.recsys_batch(gen, cfg, cells["serve_p99"]["batch"], train=False)
+        with torch.no_grad():
+            rec["serve_p99_ms"], rec["serve_p99_runs_ms"] = host_ms(lambda: score(model, b, cfg), SERVE_REPS)
+            s = score(model, b, cfg)
+            m64 = as_float64(model)
+            s64 = score(m64, b, cfg)
+        assert s.shape == (cells["serve_p99"]["batch"],) and bool(torch.isfinite(s).all())
+        rec["serve_float64_rel_l2"] = rel_l2(s, s64)
+        assert rec["serve_float64_rel_l2"] <= FP32_LOGIT_TOL, rec
+
+        # serve_bulk: rows/s at the cell's batch (BERT4Rec cut).
+        bulk = RECSYS_BULK_BATCH[arch]
+        b = synth.recsys_batch(gen, cfg, bulk, train=False)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            ms, runs = host_ms(lambda: score(model, b, cfg), 3)
+        rec["serve_bulk"] = {"batch": bulk, "ms": ms, "runs_ms": runs, "rows_per_s": bulk / ms * 1e3,
+                             "peak_gb": peak_gb()}
+        del b
+        torch.cuda.empty_cache()
+
+        # retrieval_cand: a query at batch 1 against 1M candidates, dot and l2.
+        b = synth.recsys_batch(gen, cfg, cells["retrieval_cand"]["batch"], train=False)
+        n_cand = cells["retrieval_cand"]["n_candidates"]
+        with torch.no_grad():
+            q, q64 = qemb(model, b, cfg), qemb(m64, b, cfg)
+            table, table64 = cands(model, cfg, n_cand), cands(m64, cfg, n_cand)
+            assert table.shape[0] == n_cand
+            ret = {"query_embedding_ms": host_ms(lambda: qemb(model, b, cfg), 5)[0]}
+            for metric in ("dot", "l2"):
+                ms, _ = host_ms(lambda: retrieval_topk(table, q, K_RETRIEVAL, metric=metric), 5)
+                ret[metric] = {"topk_ms": ms, **retrieval_vs_float64(table, q, table64, q64, metric)}
+        rec["retrieval"] = ret
+        del m64, table64, q64
+        torch.cuda.empty_cache()
+
+        # train_batch: fit (cut for DIEN and BERT4Rec), then gradients vs float64.
+        tb = RECSYS_TRAIN_BATCH[arch]
+        rec["train"] = fit_steps(
+            model, lambda p, bt: loss(p, bt, cfg),
+            lambda j: synth.recsys_batch(make_generator(seed + 2000 + j, DEVICE), cfg, tb, train=True),
+            RECSYS_STEPS, tb)
+        torch.cuda.empty_cache()
+        rec["grads_float64"] = loss_grads_vs_float64(model, lambda p, bt: loss(p, bt, cfg),
+                                                     synth.recsys_batch(gen, cfg, RECSYS_GRAD_BATCH, train=True))
+        del model
+        torch.cuda.empty_cache()
+        emit({"phase": "recsys", **rec})
+        out[arch] = rec
+    return out
+
+
+def phase_models_nccl(seed: int) -> dict:
+    """The sharded forms on one NCCL rank over a (1, 1) ("data", "model")
+    DeviceMesh: sharded_lookup of FM's table, sharded retrieval_topk over
+    its 1M candidates, and gat_forward_partitioned on full_graph_sm, each
+    against its unsharded call."""
+    import datetime
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.data import synth
+    from repro_torch.data.graphs import partition_edges_by_dst
+    from repro_torch.data.pointclouds import make_generator
+    from repro_torch.models import gnn as G
+    from repro_torch.models import recsys as R
+    from repro_torch.models.embeddings import lookup, sharded_lookup
+    from repro_torch.models.retrieval import retrieval_topk
+    from repro_torch.sharding.axes import MeshRules
+
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    out = {"phase": "models_nccl", "process_group": backend, "ranks": 1}
+    gen = make_generator(seed + 70, DEVICE)
+    fm_cfg = model_config("fm")
+    fm = R.fm_init(gen, fm_cfg)
+    ids = R._fm_ids(synth.recsys_batch(gen, fm_cfg, RECSYS_SERVE_BATCH, train=False), fm_cfg)
+    cands = R.fm_candidate_table(fm, fm_cfg, cell_dims("fm")["retrieval_cand"]["n_candidates"])
+    queries = torch.randn((4, fm_cfg.embed_dim), generator=gen, device=DEVICE)
+    gcfg = model_config(GNN_ARCH)
+    d = cell_dims(GNN_ARCH)["full_graph_sm"]
+    gat = G.init_gat_params(gen, gcfg, d["d_feat"], gcfg.n_classes)
+    graph = synth.gnn_batch(gen, gcfg, n_nodes=d["n_nodes"], n_edges=d["n_edges"], d_feat=d["d_feat"],
+                            n_classes=gcfg.n_classes)
+    with tempfile.TemporaryDirectory() as tmp, torch.no_grad():
+        dist.init_process_group(backend, store=dist.FileStore(f"{tmp}/store", 1), rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=600),
+                                device_id=torch.device(DEVICE, 0) if DEVICE == "cuda" else None)
+        try:
+            mesh = init_device_mesh(DEVICE, (1, 1), mesh_dim_names=("data", "model"))
+            rules = MeshRules(batch=("data",), model="model", mesh=mesh)
+            got = sharded_lookup(fm.embed, ids, rules, vocab=sum(fm_cfg.vocab_sizes))
+            out["sharded_lookup"] = {"shape": list(got.shape), "bitwise": torch.equal(got, lookup(fm.embed, ids))}
+            assert out["sharded_lookup"]["bitwise"], out
+            out["retrieval"] = {}
+            for metric in ("dot", "l2"):
+                sh = retrieval_topk(cands, queries, K_RETRIEVAL, metric=metric, rules=rules)
+                one = retrieval_topk(cands, queries, K_RETRIEVAL, metric=metric)
+                r = {"ids_equal": torch.equal(sh.ids, one.ids),
+                     "max_abs_err": float((sh.scores - one.scores).abs().max())}
+                assert r["ids_equal"] and r["max_abs_err"] <= 2e-5 + 2e-4 * float(one.scores.abs().max()), r
+                out["retrieval"][metric] = r
+            host = {k: graph[k].cpu().numpy() for k in ("edge_src", "edge_dst", "edge_mask")}
+            src, dst, msk, n_pad = partition_edges_by_dst(host["edge_src"], host["edge_dst"], host["edge_mask"],
+                                                          d["n_nodes"], 1)
+            assert n_pad == d["n_nodes"]
+            part = {"feats": graph["feats"], "edge_src": torch.from_numpy(src).to(DEVICE),
+                    "edge_dst": torch.from_numpy(dst).to(DEVICE), "edge_mask": torch.from_numpy(msk).to(DEVICE)}
+            got = G.gat_forward_partitioned(gat, part, gcfg, rules)
+            want = G.gat_forward(gat, graph, gcfg)
+            excess = (got - want).abs() - (2e-5 + 2e-4 * want.abs())
+            out["gat_partitioned"] = {"max_abs_err": float((got - want).abs().max()),
+                                      "within_rtol_2e-4_atol_2e-5": bool((excess <= 0).all()),
+                                      "edges": int(src.shape[0])}
+            assert out["gat_partitioned"]["within_rtol_2e-4_atol_2e-5"], out
+        finally:
+            dist.destroy_process_group()
+    del fm, cands
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def phase_models_launcher() -> dict:
+    """``python -m repro_torch.launch.train --arch gat-cora --steps 4`` and
+    ``--arch dien --steps 4`` on the card, two subprocesses at once."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    procs = {a: subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train", "--arch", a, "--steps", "4"],
+                                 cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for a in (GNN_ARCH, "dien")}
+    out = {"phase": "models_launcher", "runs": {}}
+    try:
+        for a, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            out["runs"][a] = {"returncode": proc.returncode, "stdout": stdout.strip().splitlines()[-3:]}
+            assert proc.returncode == 0 and "[train] done" in stdout and "device=cuda" in stdout, (a, stderr)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    out["wall_s"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
 def held_summary(path: str, scans: list) -> dict:
     """One path's wrapper calls held to the plain version: how many, the
     worst |Δ|, the tightest tolerance any of them was held to and, where the
@@ -3612,6 +4094,16 @@ def main() -> int:
     emit({"phase": "main_path", "path": "train", "launches": train["launches"],
           "route_launches": train["route_launches"], "wall_s": time.perf_counter() - t0})
     phase_train_launcher()
+    # Phases 17 and 18: GNN and recsys (no kernel on their path: each main
+    # path runs with the counters at 0 and must leave them there).
+    for path, run in (("gnn", phase_gnn), ("recsys", phase_recsys), ("models_nccl", phase_models_nccl)):
+        zero_counts()
+        t0 = time.perf_counter()
+        run(args.seed)
+        n = counts()
+        assert not any(n.values()), (path, n)
+        emit({"phase": "main_path", "path": path, "launches": n, "wall_s": time.perf_counter() - t0})
+    phase_models_launcher()
 
     def total(name):
         return sum(c[name] for c in (search_launches, batch_launches, shard_launches, serve_launches))

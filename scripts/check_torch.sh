@@ -48,6 +48,8 @@ if [[ -z "${SKIP_EXAMPLES:-}" ]]; then
   python examples/torch_serve_prohd.py --device cpu
   python examples/torch_distributed.py --ranks 4 --backend gloo --device cpu --n 8192 --d 16
   python -m repro_torch.launch.train --arch tinyllama-1.1b --steps 8 --device cpu
+  python -m repro_torch.launch.train --arch gat-cora --steps 4 --device cpu
+  python -m repro_torch.launch.train --arch fm --steps 4 --device cpu
 fi
 
 if [[ -z "${SKIP_CHIP:-}" ]] && python -c "import sys, torch; sys.exit(0 if torch.cuda.is_available() else 1)"; then

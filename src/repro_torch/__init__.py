@@ -18,9 +18,14 @@ Module layout mirrors ``repro`` so each counterpart is found by path::
                            bucket scans
     kernels/flash_attention/  the hand-written flash-attention forward
                            (CUDA C++), its plain version and oracle
-    configs/               LMConfig, shape cells and the dense LM configs
+    configs/               LMConfig, GNNConfig, RecsysConfig, shape cells
+                           and the ten arch configs
     models/                RMSNorm, RoPE, attention, SwiGLU; the dense
-                           transformer's prefill_step and serve_step
+                           transformer's prefill_step and serve_step;
+                           GAT (gnn.py), the recsys zoo (recsys.py),
+                           embeddings and retrieval top-k
+    sharding/              logical-axis rules (axes.py) and the
+                           collectives with a backward (collectives.py)
     hd/                    the ``set_distance``, ``search`` and
                            ``search_batch`` front doors
     index/                 ``SetStore``, the certified cascade search and
@@ -30,9 +35,10 @@ Module layout mirrors ``repro`` so each counterpart is found by path::
     train/                 heartbeats and retry-with-recovery
     obs/, reliability/     spans and metrics; typed faults and injection
     data/pointclouds.py    the paper's synthetic clouds and the corpus
-    data/synth.py          synthetic LM token batches
-    interop.py             reference configs, arrays, stores and LM
-                           parameters → port objects
+    data/synth.py          synthetic LM, GNN and recsys batches
+    data/graphs.py         CSR graphs, the fanout sampler, the partitioner
+    interop.py             reference configs, arrays, stores and LM, GAT
+                           and recsys parameters → port objects
 
 Device rule: entry points run on the card unless the caller asks for the
 CPU (``device="cpu"`` or CPU tensors); see :mod:`repro_torch.device`.

@@ -1,1 +1,1 @@
-"""Architecture configs of the port (the dense LMs) and their registry."""
+"""Architecture configs of the port (the LMs, GAT and the recsys models) and their registry."""

@@ -1,13 +1,15 @@
-"""Config system of the port's LM path: ``LMConfig``, shape cells, registry.
+"""Config system of the port: ``LMConfig``, ``GNNConfig``, ``RecsysConfig``,
+shape cells, registry.
 
-Counterpart of the LM part of ``repro/configs/base.py``.  Every ported
-architecture is a module ``repro_torch/configs/<id>.py`` exporting
-``CONFIG`` (the reference's hyperparameters, word for word) and ``SHAPES``;
-``registry()`` maps arch-id → ``ArchSpec`` over the ported ones (the dense
-and MoE LMs; GNN and recsys wait with their models).
+Counterpart of ``repro/configs/base.py``.  Every architecture is a module
+``repro_torch/configs/<id>.py`` exporting ``CONFIG`` (the reference's
+hyperparameters, word for word) and ``SHAPES``; ``registry()`` maps
+arch-id → ``ArchSpec`` over all ten (the dense and MoE LMs, GAT and the
+four recsys models), so ``arch_ids()`` equals the reference's.
 
-``LMConfig.dtype`` is a ``torch.dtype`` (bf16 by default, fp32 in
-``smoke_lm_config``).  ``remat`` is live: with a gradient recorded, each
+Every config's ``dtype`` is a ``torch.dtype`` (LMs bf16 by default, fp32
+in ``smoke_lm_config``; GNN and recsys fp32).  ``RecsysConfig.unroll`` is
+inert, as ``LMConfig``'s is: the GRUs are Python loops over time.  ``remat`` is live: with a gradient recorded, each
 layer of ``models.transformer.lm_forward`` runs under
 ``torch.utils.checkpoint`` and is recomputed in the backward, as the
 reference's ``jax.checkpoint``.  The fields that only the reference's mesh
@@ -20,12 +22,13 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Mapping
+from typing import Any, Mapping
 
 import torch
 
-__all__ = ["ShapeCell", "LM_SHAPES", "LMConfig", "ArchSpec", "arch_ids", "load_arch",
-           "registry", "smoke_lm_config"]
+__all__ = ["ShapeCell", "LM_SHAPES", "GNN_SHAPES", "RECSYS_SHAPES", "LMConfig", "GNNConfig",
+           "RecsysConfig", "ArchSpec", "arch_ids", "load_arch", "registry", "smoke_lm_config",
+           "smoke_recsys_config"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +57,25 @@ LM_SHAPES = (
             "attention per the assignment; see DESIGN.md §4"
         ),
     ),
+)
+
+GNN_SHAPES = (
+    ShapeCell("full_graph_sm", "train", {"n_nodes": 2708, "n_edges": 10556, "d_feat": 1433}),
+    ShapeCell(
+        "minibatch_lg",
+        "train",
+        {"n_nodes": 232965, "n_edges": 114615892, "batch_nodes": 1024,
+         "fanout0": 15, "fanout1": 10, "d_feat": 602},
+    ),
+    ShapeCell("ogb_products", "train", {"n_nodes": 2449029, "n_edges": 61859140, "d_feat": 100}),
+    ShapeCell("molecule", "train", {"n_nodes": 30, "n_edges": 64, "batch": 128, "d_feat": 16}),
+)
+
+RECSYS_SHAPES = (
+    ShapeCell("train_batch", "train", {"batch": 65536}),
+    ShapeCell("serve_p99", "serve", {"batch": 512}),
+    ShapeCell("serve_bulk", "serve", {"batch": 262144}),
+    ShapeCell("retrieval_cand", "retrieval", {"batch": 1, "n_candidates": 1_000_000}),
 )
 
 
@@ -112,9 +134,50 @@ class LMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class GNNConfig:
+    """Graph attention network (GAT) — SDDMM / segment-softmax regime."""
+
+    name: str
+    n_layers: int
+    d_hidden: int       # per-head hidden dim
+    n_heads: int
+    aggregator: str = "attn"
+    n_classes: int = 7
+    dtype: torch.dtype = torch.float32
+    negative_slope: float = 0.2
+
+    @property
+    def family(self) -> str:
+        return "gnn"
+
+
+@dataclasses.dataclass(frozen=True)
+class RecsysConfig:
+    """Sparse-embedding recsys model; ``interaction`` picks the tower."""
+
+    name: str
+    interaction: str            # "augru" | "bidir-seq" | "transformer-seq" | "fm-2way"
+    embed_dim: int
+    seq_len: int = 0            # behaviour-sequence length (0 = none)
+    n_sparse: int = 0           # # of categorical fields (FM)
+    gru_dim: int = 0
+    n_blocks: int = 0
+    n_heads: int = 0
+    mlp_dims: tuple[int, ...] = ()
+    vocab_sizes: tuple[int, ...] = ()   # per-field hash sizes
+    item_vocab: int = 2_000_000
+    dtype: torch.dtype = torch.float32
+    unroll: bool = False   # inert: GRU scan unrolling in the reference
+
+    @property
+    def family(self) -> str:
+        return "recsys"
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    config: LMConfig
+    config: Any
     shapes: tuple[ShapeCell, ...]
 
 
@@ -124,6 +187,11 @@ _ARCH_MODULES = {
     "tinyllama-1.1b": "tinyllama_1_1b",
     "grok-1-314b": "grok1_314b",
     "olmoe-1b-7b": "olmoe_1b_7b",
+    "gat-cora": "gat_cora",
+    "dien": "dien",
+    "bert4rec": "bert4rec",
+    "bst": "bst",
+    "fm": "fm",
 }
 
 
@@ -160,3 +228,17 @@ def smoke_lm_config(cfg: LMConfig) -> LMConfig:
         fsdp=False,
         dtype=torch.float32,
     )
+
+
+def smoke_recsys_config(cfg: RecsysConfig) -> RecsysConfig:
+    """Tables of at most 512 rows, short sequences, MLP widths of at most 64."""
+    kw: dict = dict(item_vocab=512)
+    if cfg.vocab_sizes:
+        kw["vocab_sizes"] = tuple(min(v, 512) for v in cfg.vocab_sizes)
+    if cfg.interaction == "augru":
+        kw["seq_len"] = 12
+    if cfg.interaction == "bidir-seq":
+        kw["seq_len"] = 24
+    if cfg.mlp_dims:
+        kw["mlp_dims"] = tuple(min(m, 64) for m in cfg.mlp_dims)
+    return dataclasses.replace(cfg, **kw)

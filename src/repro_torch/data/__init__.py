@@ -1,0 +1,1 @@
+"""Data pipeline: synthetic generators, point clouds, graph samplers, recsys batches."""

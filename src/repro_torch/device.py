@@ -35,6 +35,7 @@ __all__ = [
     "as_mask",
     "check_generator",
     "clone_generator",
+    "widen",
 ]
 
 
@@ -115,3 +116,10 @@ def clone_generator(generator: torch.Generator) -> torch.Generator:
     g = torch.Generator(device=generator.device)
     g.set_state(generator.get_state())
     return g
+
+
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in fp32, the reference's ``astype(float32)`` — or in float64
+    when it is float64, so a float64 copy of a model runs the same code
+    as an oracle without dropping to fp32 anywhere."""
+    return x if x.dtype == torch.float64 else x.float()

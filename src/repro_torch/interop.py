@@ -2,11 +2,12 @@
 
 ProHD has no weights: its state is the configuration and the data.  This
 module turns the fields of a reference ``HDConfig`` / ``ProHDConfig`` /
-``ServeConfig`` / ``EngineConfig`` / ``DriftMonitorConfig`` / ``LMConfig``,
-passed as a plain dict
+``ServeConfig`` / ``EngineConfig`` / ``DriftMonitorConfig`` / ``LMConfig``
+/ ``GNNConfig`` / ``RecsysConfig``, passed as a plain dict
 (``dataclasses.asdict``), and numpy arrays (clouds,
-masks, projections, directions, a corpus, an LM's parameters, an
-optimizer's or PowerSGD's state) into the port's objects, so a test can
+masks, projections, directions, a corpus, an LM's, GAT's or a recsys
+model's parameters, an optimizer's or PowerSGD's state) into the port's
+objects, so a test can
 build both packages' inputs from one dict and one set of arrays.  It
 imports nothing of the reference package.
 """
@@ -18,12 +19,13 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.configs.base import LMConfig
+from repro_torch.configs.base import GNNConfig, LMConfig, RecsysConfig
 from repro_torch.core.prohd import ProHDConfig
 from repro_torch.core.streaming import DriftMonitorConfig
-from repro_torch.device import as_tensor
+from repro_torch.device import as_tensor, resolve_device
 from repro_torch.hd.config import HDConfig
 from repro_torch.index.store import SetStore
+from repro_torch.models.param_tree import ParamTree
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.serve.engine import EngineConfig
 from repro_torch.serve.server import ServeConfig
@@ -45,6 +47,10 @@ __all__ = [
     "store_from_reference",
     "lm_config_from_dict",
     "lm_params_from_reference",
+    "gnn_config_from_dict",
+    "recsys_config_from_dict",
+    "gnn_params_from_reference",
+    "recsys_params_from_reference",
     "by_name",
     "opt_state_from_reference",
     "powersgd_state_from_reference",
@@ -143,14 +149,58 @@ def store_from_reference(directions: np.ndarray, sets, *, min_bucket: int = 8,
     return store
 
 
+def _config(cls, d: dict[str, Any]):
+    kw = _fields(cls, d)
+    if "dtype" in kw:
+        kw["dtype"] = getattr(torch, np.dtype(kw["dtype"]).name)
+    for k in ("vocab_sizes", "mlp_dims"):
+        if k in kw:
+            kw[k] = tuple(kw[k])
+    return cls(**kw)
+
+
 def lm_config_from_dict(d: dict[str, Any]) -> LMConfig:
     """A port ``LMConfig`` from a reference ``LMConfig``'s fields; its
     dtype (a jnp scalar type or any numpy-understood dtype) becomes the
     ``torch.dtype`` of the same name."""
-    kw = _fields(LMConfig, d)
-    if "dtype" in kw:
-        kw["dtype"] = getattr(torch, np.dtype(kw["dtype"]).name)
-    return LMConfig(**kw)
+    return _config(LMConfig, d)
+
+
+def gnn_config_from_dict(d: dict[str, Any]) -> GNNConfig:
+    """A port ``GNNConfig`` from a reference ``GNNConfig``'s fields (dtype as
+    in :func:`lm_config_from_dict`)."""
+    return _config(GNNConfig, d)
+
+
+def recsys_config_from_dict(d: dict[str, Any]) -> RecsysConfig:
+    """A port ``RecsysConfig`` from a reference ``RecsysConfig``'s fields
+    (dtype as in :func:`lm_config_from_dict`; the size lists as tuples)."""
+    return _config(RecsysConfig, d)
+
+
+def _param_tree(params_np: dict, dtype, device) -> ParamTree:
+    def conv(v):
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return [conv(x) for x in v]
+        return torch.from_numpy(np.array(v, np.float32)).to(dtype)
+
+    return ParamTree(conv(params_np), device=resolve_device(None, device))
+
+
+def gnn_params_from_reference(params_np: dict, cfg: GNNConfig, *, device=None) -> ParamTree:
+    """GAT's parameters (``models.gnn``) holding exactly the reference's
+    values: ``params_np`` is its tree as numpy (``jax.tree.map(np.asarray,
+    params)``), in ``cfg.dtype``."""
+    return _param_tree(params_np, cfg.dtype, device)
+
+
+def recsys_params_from_reference(params_np: dict, cfg: RecsysConfig, *, device=None) -> ParamTree:
+    """A recsys model's parameters (``models.recsys``) holding exactly the
+    reference's values, under its tree paths (lists as ``ModuleList``s:
+    ``mlp.0.w``), in ``cfg.dtype``."""
+    return _param_tree(params_np, cfg.dtype, device)
 
 
 def lm_params_from_reference(params_np: dict, cfg: LMConfig, *, device=None) -> TransformerLM:
@@ -169,9 +219,10 @@ def lm_params_from_reference(params_np: dict, cfg: LMConfig, *, device=None) -> 
 
 def by_name(tree_np: dict, name: str):
     """The entry of a reference pytree (nested dicts) under a port name
-    whose dots join the keys: ``"layers.wq"`` → ``tree["layers"]["wq"]``."""
+    whose dots join the keys: ``"layers.wq"`` → ``tree["layers"]["wq"]``,
+    ``"mlp.0.w"`` → ``tree["mlp"][0]["w"]``."""
     for part in name.split("."):
-        tree_np = tree_np[part]
+        tree_np = tree_np[int(part)] if isinstance(tree_np, (list, tuple)) else tree_np[part]
     return tree_np
 
 

@@ -3,15 +3,23 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b --steps 50
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b --device cpu
 
-Counterpart of ``repro/launch/train.py``, with its arguments: an LM arch
-runs its ``smoke_lm_config`` (fp32, 2 layers) on synthetic token batches
-(``data.synth.lm_batch``; step i's batch from a generator seeded i, the
-counterpart of the reference's ``fold_in(key, i)``) through
-``train.loop.fit`` with the reference's AdamW (lr 1e-3, weight decay
-0.01): checkpointing with ``--ckpt-dir``, failure recovery, the straggler
-detector.  Runs on the card (kernel 4's fp32 route in every layer's
-forward) unless ``--device cpu`` is given.  The GNN and recsys families
-are not ported yet (``ROADMAP.md`` Queue 1 item 4) and raise.
+Counterpart of ``repro/launch/train.py``, with its arguments; every arch
+of the registry runs, each family as the reference's launcher runs it:
+
+* an LM arch: its ``smoke_lm_config`` (fp32, 2 layers) on synthetic token
+  batches (``data.synth.lm_batch``);
+* ``gat-cora``: GAT at its config on random graphs of 512 nodes, 2,048
+  edges plus self-loops padded to 4,096, 64 features, 7 classes
+  (``data.synth.gnn_batch``), node-classification loss;
+* a recsys arch: its ``smoke_recsys_config`` on ``data.synth.recsys_batch``
+  of ``--batch`` rows (``--seq`` is the LMs' only).
+
+Step i's batch comes from a generator seeded i, the counterpart of the
+reference's ``fold_in(key, i)``; the parameters from a generator seeded
+0.  All go through ``train.loop.fit`` with the reference's AdamW (lr 1e-3,
+weight decay 0.01): checkpointing with ``--ckpt-dir``, failure recovery,
+the straggler detector.  Runs on the card (an LM: kernel 4's fp32 route in
+every layer's forward) unless ``--device cpu`` is given.
 ``--drift-every`` is accepted and, as in the reference (which passes no
 ``drift_hook`` to ``fit``), has no effect.
 """
@@ -19,10 +27,6 @@ from __future__ import annotations
 
 import argparse
 import time
-
-# The reference's GNN and recsys arch ids (``repro/configs/base.py``), not ported yet.
-UNPORTED_FAMILIES = {"gat-cora": "gnn", "dien": "recsys", "bert4rec": "recsys", "bst": "recsys",
-                     "fm": "recsys"}
 
 
 def main(argv=None) -> None:
@@ -36,31 +40,58 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     args = ap.parse_args(argv)
 
-    if args.arch in UNPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"arch {args.arch!r} is of the {UNPORTED_FAMILIES[args.arch]} family, which the port does not "
-            "have yet (ROADMAP.md Queue 1 item 4: GNN and recsys)")
-
     import torch
 
-    from repro_torch.configs.base import load_arch, smoke_lm_config
+    from repro_torch.configs.base import load_arch, smoke_lm_config, smoke_recsys_config
     from repro_torch.data import synth
     from repro_torch.device import resolve_device
+    from repro_torch.models import gnn as gnn_mod
+    from repro_torch.models import recsys as rec_mod
     from repro_torch.models import transformer as lm_mod
     from repro_torch.train import optimizer as opt_mod
     from repro_torch.train.loop import TrainConfig, fit
 
     dev = resolve_device(None, args.device)
-    cfg = smoke_lm_config(load_arch(args.arch).config)
-    model = lm_mod.init_lm_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    cfg = load_arch(args.arch).config
 
-    def loss_fn(p, b):
-        return lm_mod.lm_loss(p, b, cfg)
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    if cfg.family == "lm":
+        cfg = smoke_lm_config(cfg)
+        model = lm_mod.init_lm_params(gen(0), cfg)
+
+        def loss_fn(p, b):
+            return lm_mod.lm_loss(p, b, cfg)
+
+        def make_batch(i):
+            return synth.lm_batch(gen(i), cfg, args.batch, args.seq)
+
+    elif cfg.family == "gnn":
+        n, e, f, c = 512, 2048, 64, 7
+        model = gnn_mod.init_gat_params(gen(0), cfg, f, c)
+
+        def loss_fn(p, b):
+            return gnn_mod.gat_node_loss(p, b, cfg)
+
+        def make_batch(i):
+            return synth.gnn_batch(gen(i), cfg, n_nodes=n, n_edges=e, d_feat=f, n_classes=c, pad_edges_to=4096)
+
+    else:
+        cfg = smoke_recsys_config(cfg)
+        init, _, loss, *_ = rec_mod.get_model(cfg)
+        model = init(gen(0), cfg)
+
+        def loss_fn(p, b):
+            return loss(p, b, cfg)
+
+        def make_batch(i):
+            return synth.recsys_batch(gen(i), cfg, args.batch, train=True)
 
     def data_iter(start):
         i = start
         while True:
-            yield synth.lm_batch(torch.Generator(device=dev).manual_seed(i), cfg, args.batch, args.seq)
+            yield make_batch(i)
             i += 1
 
     n_params = sum(p.numel() for p in model.parameters())

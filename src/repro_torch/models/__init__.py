@@ -1,1 +1,1 @@
-"""The LM scaffolding of the port: layers and the dense transformer."""
+"""Models of the port: LM layers and the transformer, GAT, the recsys zoo, embeddings and retrieval."""
