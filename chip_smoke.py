@@ -244,11 +244,36 @@ the seed, the configs' published widths):
      repro_torch.launch.train --arch gat-cora`` and ``--arch dien`` (4
      steps each) as subprocesses, exit code 0.
 
+Sharding, launch and analysis (the reference's multi-pod dry run, on DTensor):
+  19a. the dry run (``python -m repro_torch.launch.dryrun --all
+     --both-meshes``, 6 worker processes on the host, started beside 19b):
+     every (architecture × shape) cell of the ten configs on the (16, 16)
+     and (2, 16, 16) production meshes, each a fake process group of the
+     mesh's size and fake tensors of the card's device type (attention is
+     kernel 4's fake op), one trace of the step under the per-device FLOP,
+     collective and MemTracker counters; one line per record (FLOPs per
+     device beside model_flops, wire bytes by op, the traced peak beside
+     the analytic peak and the card's memory, the bottleneck term) and the
+     sweep's seconds, within 240 s; 80 records, 70 ok and 10 skipped with
+     the configs' long_500k reason, none in error;
+  19b. TinyLlama-1.1B at full width and depth on a one-rank NCCL (1, 1)
+     ("data", "model") mesh, its cells from launch.specs.build_cell and its
+     parameters DTensors placed by lm_param_specs, phase 14's weights; each
+     cell's fn run on the plain parameters and on the DTensors: prefill at
+     8 × 4,096 (22 kernel-4 launches, all "wgmma"), 4 decode steps at
+     batch 32 over a 32,768-slot cache, one train_4k step at 4 × 4,096 in
+     2 microbatches (88 launches, all "wgmma"), each bitwise the unsharded
+     path's; the real peak of the sharded prefill beside the dry run's
+     prediction for the same cell and mesh; the train state saved in the
+     phase's temporary directory and restored with the ZeRO-1 specs,
+     bitwise; the group destroyed on success and on failure.
+
 Each main path (phases 4-6: set_distance; 6b, 6c and 6d, each its own;
 phase 7b's two-sweep call; phase 8: search; phases 10 and 10b:
 search_batch; 10c: shards=1; phase 11: the served paths; phases 14 and
 14b: each prefill_step and each decode loop; phase 16: the fit call;
-phases 17, 18 and the NCCL forms: each, with no launch allowed)
+phases 17, 18 and the NCCL forms: each, with no launch allowed; phase
+19b: the sharded prefill, decode and train step)
 runs with the kernels' launch counters set to 0 just before it and read
 just after; launches made only to compare a kernel with its plain version
 are taken back out.
@@ -447,6 +472,16 @@ TRAIN_CKPT_EVERY = 2
 TRAIN_FAIL_AT = 3
 TRAIN_DRIFT_EVERY = 2
 GRAD64_TOKENS = 512
+# Phase 19 (sharding and the dry run): 19a sweeps every cell on both production
+# meshes in this many worker processes (cores of the host; the card is idle)
+# while 19b runs TinyLlama on one NCCL rank: prefill_32k cut to 8 × 4,096 as
+# phase 14's, decode_32k's batch cut to 32 over its 32,768-slot cache for 4
+# steps, train_4k as phase 16's.
+DRYRUN_JOBS = 6
+DRYRUN_TIMEOUT_S = 700
+DRYRUN_BUDGET_S = 240  # the sweep's budget; over it, the two-pod mesh would be cut to a few cells
+SHARDED_PREFILL = (8, 4_096)
+SHARDED_DECODE_STEPS = 4
 # (B, S, H, KV, hd, dtype, kv chunk): kernel 4 under autograd; S 1,000 is
 # ragged against the kernel's 128-row and 64/128-key tiles.
 ATTN_GRAD_CASES = tuple(
@@ -3100,9 +3135,11 @@ def phase_moe(seed: int) -> dict:
 
 def visible_pairs(b: int, h: int, s: int, window) -> float:
     """(q, k) pairs a causal prefill of S tokens sees, over b·h heads: S(S+1)/2,
-    or with a window W, W(W+1)/2 + (S − W)·W."""
-    w = s if window is None else min(window, s)
-    return b * h * (w * (w + 1) / 2 + (s - w) * w)
+    or with a window W, W(W+1)/2 + (S − W)·W (``flash.visible_pairs``, the
+    count kernel 4's FLOP formula takes)."""
+    from repro_torch.kernels.flash_attention import flash as F
+
+    return float(b * h * F.visible_pairs(s, s, window=window))
 
 
 def phase_times_flash(seed: int, env: dict) -> list[dict]:
@@ -3925,6 +3962,265 @@ def phase_models_launcher() -> dict:
     return out
 
 
+def start_dryrun_sweep():
+    """Phase 19a: the dry run of every (architecture × shape) cell on both
+    production meshes, in ``DRYRUN_JOBS`` worker processes of
+    ``python -m repro_torch.launch.dryrun --all --both-meshes``, fake tensors
+    of the card's device type, started in the background (its workers use
+    the host's cores, not the card).  Returns what ``finish_dryrun_sweep``
+    waits on."""
+    import tempfile
+
+    out = Path(tempfile.mkdtemp(prefix="dryrun_"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--both-meshes", "--jobs", str(DRYRUN_JOBS),
+           "--device", DEVICE, "--out", str(out / "records")]
+    log = open(out / "log.txt", "w")
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, env=env, cwd=str(ROOT))
+    return {"proc": proc, "out": out, "log": log, "t0": time.perf_counter()}
+
+
+def finish_dryrun_sweep(handle) -> dict:
+    """Wait for phase 19a, print one line per record, and check the sweep:
+    80 records, 70 ``ok`` and 10 ``skipped`` with the configs' own
+    long_500k reason, none ``error``, within ``DRYRUN_BUDGET_S``."""
+    import shutil
+
+    from repro_torch.configs.base import arch_ids, load_arch
+
+    proc = handle["proc"]
+    try:
+        proc.wait(timeout=DRYRUN_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        handle["log"].close()
+    seconds = time.perf_counter() - handle["t0"]
+    log = (handle["out"] / "log.txt").read_text()
+    recs = [json.loads(f.read_text()) for f in sorted((handle["out"] / "records").glob("*.json"))]
+    shutil.rmtree(handle["out"], ignore_errors=True)
+    reasons = {(a, c.name): c.skip_reason for a in arch_ids() for c in load_arch(a).shapes}
+    status = {}
+    for r in recs:
+        status[r["status"]] = status.get(r["status"], 0) + 1
+        line = {"phase": "dryrun", "arch": r["arch"], "shape": r["shape"], "mesh": r["mesh"], "status": r["status"],
+                "total_s": r["total_s"]}
+        if r["status"] == "ok":
+            rf = r["roofline"]
+            line.update(flops_per_device=rf["flops_per_device"], model_flops=rf["model_flops"],
+                        wire_bytes_by_op={op: v["bytes"] for op, v in rf["collectives"].items()},
+                        peak_bytes=r["memory"]["peak_bytes"], analytic_peak_bytes=r["analytic_peak_bytes"],
+                        device_bytes=r["device_bytes"], bottleneck=rf["bottleneck"],
+                        t_compute_s=rf["t_compute_s"], t_memory_s=rf["t_memory_s"],
+                        t_collective_s=rf["t_collective_s"], microbatches=r["microbatches"])
+        elif r["status"] == "skipped":
+            line["reason"] = r["reason"]
+            assert r["reason"] == reasons[(r["arch"], r["shape"])], line
+        else:
+            line["error"] = r.get("error")
+        emit(line)
+    out = {"phase": "dryrun_sweep", "records": len(recs), "status": status, "seconds": seconds,
+           "jobs": DRYRUN_JOBS, "exit": proc.returncode}
+    emit(out)
+    assert proc.returncode == 0 and len(recs) == 80 and status == {"ok": 70, "skipped": 10}, (out, log[-3000:])
+    assert seconds <= DRYRUN_BUDGET_S, out
+    return out
+
+
+def phase_sharded_lm(seed: int, env: dict) -> dict:
+    """Phase 19b: TinyLlama-1.1B at full width and depth on a one-rank NCCL
+    (1, 1) ("data", "model") mesh, its cells built by ``launch.specs.build_cell``
+    and its parameters DTensors placed by ``lm_param_specs``.  Each cell's
+    ``fn`` runs twice on the same weights, on the plain parameters and on
+    the DTensors under the cell's rules, and the two agree bitwise: prefill
+    at 8 × 4,096 (22 kernel-4 launches, all "wgmma"), 4 decode steps at
+    batch 32 over a 32,768-slot cache, one train_4k step at 4 × 4,096 in 2
+    microbatches (the cell's optimizer, AdamW; 88 launches, all "wgmma");
+    the real peak of the sharded prefill beside the dry run's ``MemTracker``
+    prediction for the same cell and mesh; then the train state saved in the
+    phase's temporary directory and restored with the ZeRO-1 specs on the
+    same mesh, bitwise."""
+    import dataclasses
+    import datetime
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.analysis.roofline import DeviceSpec
+    from repro_torch.configs.base import load_arch
+    from repro_torch.data import synth
+    from repro_torch.data.pointclouds import make_generator
+    from repro_torch.kernels.flash_attention import flash as F
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import fake_process_group, make_test_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import axes
+    from repro_torch.train import checkpoint as ck
+
+    spec = load_arch(LM_ARCH)
+    cfg = spec.config
+    cells = {c.kind: c for c in spec.shapes if c.name in ("train_4k", "prefill_32k", "decode_32k")}
+    (pb, ps), (tb, ts) = SHARDED_PREFILL, TRAIN_SHAPE
+    prefill_cell = dataclasses.replace(cells["prefill"], dims={"seq_len": ps, "global_batch": pb})
+    decode_cell = dataclasses.replace(cells["decode"], dims={"seq_len": DECODE_CACHE, "global_batch": DECODE_BATCH})
+    train_cell = dataclasses.replace(cells["train"], dims={"seq_len": ts, "global_batch": tb})
+    card = DeviceSpec.from_card() if DEVICE == "cuda" else None
+    out = {"phase": "sharded_lm", "arch": LM_ARCH, "mesh": [1, 1], "process_group": "nccl" if DEVICE == "cuda" else "gloo"}
+
+    # The dry run's prediction for the prefill cell on the same (1, 1) mesh.
+    with fake_process_group(1):
+        fake_mesh = make_test_mesh((1, 1), ("data", "model"), device_type=DEVICE)
+        pred = dryrun.trace_cell(specs.build_cell(spec, prefill_cell, fake_mesh, device=DEVICE), card)
+
+    gen = make_generator(seed + 14, DEVICE)  # phase 14's weights
+    model = T.init_lm_params(gen, cfg)
+    tokens = synth.lm_batch(gen, cfg, pb, ps)["tokens"][:, :ps]
+    dec_tokens = synth.lm_batch(gen, cfg, DECODE_BATCH, SHARDED_DECODE_STEPS)["tokens"]
+    train_batch = synth.lm_batch(make_generator(seed + 1000, DEVICE), cfg, tb, ts)
+
+    def decode(step_fn, params, cache):
+        steps = []
+        for i in range(SHARDED_DECODE_STEPS):
+            logits, nxt, cache = step_fn(params, cache, dec_tokens[:, i])
+            steps.append(tuple(t.full_tensor() if isinstance(t, DTensor) else t for t in (logits, nxt)))
+        return steps
+
+    tmp = Path(tempfile.mkdtemp())
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.FileStore(str(tmp / "store"), 1), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=600),
+                            device_id=torch.device(DEVICE, 0) if DEVICE == "cuda" else None)
+    try:
+        mesh = init_device_mesh(DEVICE, (1, 1), mesh_dim_names=("data", "model"))
+        built = {kind: specs.build_cell(spec, c, mesh, device=DEVICE, microbatches=TRAIN_MICROBATCHES)
+                 for kind, c in (("prefill", prefill_cell), ("decode", decode_cell), ("train", train_cell))}
+        tr = built["train"]
+        assert tr.microbatches == TRAIN_MICROBATCHES, tr.microbatches
+        opt = tr.optimizer
+
+        # Unsharded: each cell's fn on the plain parameters (the train step's result kept, the start put back).
+        with uncounted():
+            ref_logits = built["prefill"].fn(model, tokens)
+            ref_steps = decode(built["decode"].fn, model, T.init_kv_cache(cfg, DECODE_BATCH, DECODE_CACHE,
+                                                                          device=DEVICE))
+            torch.cuda.empty_cache()
+            start = {n: p.detach().clone() for n, p in model.named_parameters()}
+            state, ref_metrics = tr.fn(model, opt.init(dict(model.named_parameters())), train_batch)
+            ref_params = {n: p.detach().clone() for n, p in model.named_parameters()}
+            ref_metrics = {k: v.detach().clone() for k, v in ref_metrics.items()}
+            del state
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    p.copy_(start[n])
+            del start
+            torch.cuda.empty_cache()
+
+        rules = built["prefill"].rules
+        axes.distribute_module(model, built["prefill"].in_specs[0], mesh)
+
+        # prefill: 22 kernel-4 launches, all on the tensor-core route; the real peak
+        zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        arg_bytes = sum(p.to_local().numel() * p.element_size() for p in model.parameters()) \
+            + tokens.numel() * tokens.element_size()
+        t0 = time.perf_counter()
+        with axes.use_rules(rules):
+            logits = built["prefill"].fn(model, tokens).full_tensor()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        real_peak = torch.cuda.max_memory_allocated() - before + arg_bytes
+        n_prefill, routes = counts()["flash_fwd"], route_counts()
+        out["prefill"] = {"batch": pb, "seq": ps, "launches": n_prefill, "route_launches": routes, "wall_s": wall,
+                          "bitwise": bool(torch.equal(logits, ref_logits)),
+                          "max_abs_err": float((logits - ref_logits).abs().max()),
+                          "real_peak_bytes": real_peak, "predicted_peak_bytes": pred["memory"]["peak_bytes"],
+                          "real_over_predicted": real_peak / pred["memory"]["peak_bytes"],
+                          "predicted_flops_per_device": pred["roofline"]["flops_per_device"]}
+        assert n_prefill == cfg.n_layers and routes == {"wgmma": cfg.n_layers, "ffma": 0}, out["prefill"]
+        assert out["prefill"]["bitwise"], out["prefill"]
+        del logits
+
+        # decode: 4 steps over a cache placed by kv_cache_specs
+        zero_counts()
+        cache = axes.distribute_tree(T.init_kv_cache(cfg, DECODE_BATCH, DECODE_CACHE, device=DEVICE),
+                                     built["decode"].in_specs[1], mesh)
+        with axes.use_rules(built["decode"].rules):
+            steps = decode(built["decode"].fn, model, cache)
+        del cache
+        torch.cuda.empty_cache()
+        out["decode"] = {"batch": DECODE_BATCH, "cache": DECODE_CACHE, "steps": SHARDED_DECODE_STEPS,
+                         "launches": counts()["flash_fwd"],
+                         "bitwise": all(torch.equal(a, b) and torch.equal(x, y)
+                                        for (a, x), (b, y) in zip(steps, ref_steps))}
+        assert out["decode"]["bitwise"] and out["decode"]["launches"] == 0, out["decode"]
+        n_decode = out["decode"]["launches"]
+
+        # one train_4k step at 4 × 4,096 in 2 microbatches, the optimizer's state placed by the cell's specs
+        zero_counts()
+        named = dict(model.named_parameters())
+        ospecs = {k: ({n: axes._spec_at(v, n) for n in named} if isinstance(v, dict) else v)
+                  for k, v in tr.in_specs[1].items()}
+        state = axes.distribute_tree(opt.init(named), ospecs, mesh)
+        with axes.use_rules(tr.rules):
+            state, metrics = tr.fn(model, state, train_batch)
+        torch.cuda.synchronize()
+        n_train, train_routes = counts()["flash_fwd"], route_counts()
+        params_equal = all(torch.equal(p.full_tensor(), ref_params[n]) for n, p in model.named_parameters())
+        out["train"] = {"batch": tb, "seq": ts, "microbatches": TRAIN_MICROBATCHES, "launches": n_train,
+                        "route_launches": train_routes,
+                        "loss_bitwise": bool(torch.equal(metrics["loss"].full_tensor(), ref_metrics["loss"])),
+                        "grad_norm_bitwise": bool(torch.equal(metrics["grad_norm"].full_tensor(),
+                                                              ref_metrics["grad_norm"])),
+                        "params_bitwise": params_equal, "loss": float(metrics["loss"].full_tensor())}
+        assert out["train"]["loss_bitwise"] and out["train"]["grad_norm_bitwise"] and params_equal, out["train"]
+        n_want = 2 * cfg.n_layers * TRAIN_MICROBATCHES
+        assert n_train == n_want and train_routes == {"wgmma": n_want, "ffma": 0}, out["train"]
+        del ref_params
+
+        # save the train state, restore it with the ZeRO-1 specs on the same mesh
+        zero1 = T.zero1_opt_specs(tr.in_specs[0], T.nested_shapes(cfg), mesh)
+        z_specs = {"params": {n: axes._spec_at(zero1, n) for n in named},
+                   "opt": {k: ({n: axes._spec_at(v, n) for n in named} if isinstance(v, dict) else v)
+                           for k, v in opt.state_specs(zero1).items()}}
+        tree = {"params": {n: p.detach() for n, p in named.items()}, "opt": state}
+        ck_root = tmp / "ckpt"
+        try:
+            t0 = time.perf_counter()
+            ck.save(ck_root, 1, tree)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got, step = ck.restore(ck_root, tree, mesh=mesh, specs=z_specs)
+            restore_s = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(ck_root, ignore_errors=True)
+        flat_got, flat_want, flat_spec = ck._flatten(got), ck._flatten(tree), ck._flatten(z_specs,
+                                                                                         is_leaf=axes._is_spec)
+        same = [torch.equal(flat_got[k].to_local(), flat_want[k].full_tensor()) and
+                tuple(flat_got[k].placements) == axes.placements(flat_spec[k], mesh) for k in flat_want]
+        out["checkpoint"] = {"leaves": len(same), "bitwise": all(same), "step": step, "save_s": save_s,
+                             "restore_s": restore_s, "dir": str(tmp),
+                             "gb": sum(flat_want[k].numel() * flat_want[k].element_size() for k in flat_want) / 1e9}
+        assert out["checkpoint"]["bitwise"] and step == 1, out["checkpoint"]
+        del got, tree, state
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    del model
+    torch.cuda.empty_cache()
+    out["launches"] = n_prefill + n_decode + n_train
+    out["route_launches"] = {r: out["prefill"]["route_launches"][r] + out["train"]["route_launches"][r]
+                             for r in out["train"]["route_launches"]}
+    emit(out)
+    return out
+
+
 def held_summary(path: str, scans: list) -> dict:
     """One path's wrapper calls held to the plain version: how many, the
     worst |Δ|, the tightest tolerance any of them was held to and, where the
@@ -4104,6 +4400,21 @@ def main() -> int:
         assert not any(n.values()), (path, n)
         emit({"phase": "main_path", "path": path, "launches": n, "wall_s": time.perf_counter() - t0})
     phase_models_launcher()
+    # Phase 19: sharding.  19a, the dry run of every cell on both production
+    # meshes, runs in worker processes on the host while 19b, main path 8,
+    # runs TinyLlama on DTensor parameters over one NCCL rank.
+    sweep = start_dryrun_sweep()
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        sharded = phase_sharded_lm(args.seed, env)
+        emit({"phase": "main_path", "path": "sharded_lm", "launches": {"flash_fwd": sharded["launches"]},
+              "route_launches": sharded["route_launches"], "wall_s": time.perf_counter() - t0})
+    except BaseException:
+        sweep["proc"].kill()
+        sweep["proc"].wait()
+        raise
+    finish_dryrun_sweep(sweep)
 
     def total(name):
         return sum(c[name] for c in (search_launches, batch_launches, shard_launches, serve_launches))
@@ -4119,15 +4430,15 @@ def main() -> int:
         kernel_entry("multiquery_minscan", "cuda", KERNEL3_SOURCE, TPU_KERNEL3,
                      total("multiquery_minscan"), max_err3, rows3, held3),
         {**kernel_entry("flash_fwd", "cuda", KERNEL4_SOURCE, TPU_KERNEL4,
-                        lm["launches"] + moe["launches"] + train["launches"]["flash_fwd"],
+                        lm["launches"] + moe["launches"] + train["launches"]["flash_fwd"] + sharded["launches"],
                         max([max_err4] + [r["forward"]["max_abs_err"] for r in attn_grad["cases"]]),
                         rows4, (lm["held"], moe["held"])),
          "routes": {"wgmma": {"dtype": "bfloat16", "source": KERNEL4_SOURCE, "replaces": TPU_KERNEL4,
                               "launches": lm["route_launches"]["wgmma"] + moe["route_launches"]["wgmma"]
-                              + train["route_launches"]["wgmma"]},
+                              + train["route_launches"]["wgmma"] + sharded["route_launches"]["wgmma"]},
                     "ffma": {"dtype": "float32", "source": KERNEL4_FP32_SOURCE, "replaces": TPU_KERNEL4,
                              "launches": lm["route_launches"]["ffma"] + moe["route_launches"]["ffma"]
-                             + train["route_launches"]["ffma"]}}},
+                             + train["route_launches"]["ffma"] + sharded["route_launches"]["ffma"]}}},
     ]})
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
     print(smi("name,power.limit"), flush=True)

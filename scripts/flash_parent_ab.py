@@ -8,8 +8,8 @@ one card, at the shapes both can run.
 ``git archive <commit> | tar -x -C build/parent`` and then
 ``build/parent/src``); its ``kernels/flash_attention/csrc/flash_fwd*.cu``
 are built into a temporary directory with this tree's ``nvcc`` flags.
-The earlier launcher is taken to have no query offset and no window (its
-C entry points end ``…, scale, causal, stream``).  Every side is one bare
+The earlier launcher's C entry point ends ``…, causal, q_offset, window,
+stream`` (called with offset 0 and no window).  Every side is one bare
 ``ctypes`` call of its library's ``flash_fwd_sm90`` on the same tensors,
 so no side pays Python launcher time that another does not:
 
@@ -24,7 +24,14 @@ so no side pays Python launcher time that another does not:
 At each of ``chip_smoke.FLASH_TIMES``' causal bf16 shapes the sides are
 timed with CUDA events (``chip_smoke.cuda_ms``: the median of 5 after a
 warm-up) in turns, parent, this, span, span, this, parent, ``--reps``
-times, and their outputs compared bit for bit.  Prints one JSON line per
+times, and their outputs compared bit for bit.
+
+Then the wrapper, before and after kernel 4 became the custom op
+``torch.ops.repro_torch.flash_fwd``: ``launcher`` is the earlier wrapper's
+body (an output allocated, then ``flash.flash_fwd``), ``op`` is
+``flash.flash_attention`` through the op; each timed with CUDA events as
+above and on the host clock (microseconds a call over 50 calls, the device
+synchronised at both ends), in turns, outputs bitwise.  Prints one JSON line per
 shape and the card's name and power limit.  Needs one CUDA card and
 ``nvcc``.
 """
@@ -36,6 +43,7 @@ import json
 import statistics
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -55,7 +63,7 @@ def parent_library(src: Path, tmp: Path) -> ctypes.CDLL:
     _build.compile_library([tmp / "flash_fwd.cu", tmp / "flash_fwd_sm90.cu"], so)
     lib = ctypes.CDLL(str(so))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_fwd_sm90.argtypes = [p, p, p, p, i, i, i, i, i, i, f, i, p]
+    lib.flash_fwd_sm90.argtypes = [p, p, p, p, i, i, i, i, i, i, f, i, i, i, p]
     lib.flash_fwd_sm90.restype = i
     return lib
 
@@ -94,7 +102,7 @@ def main() -> int:
                 o = outs[name]
                 ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, s, h, kv, hd, scale, 1)
                 if name == "parent":
-                    err = parent.flash_fwd_sm90(*ptrs, stream)
+                    err = parent.flash_fwd_sm90(*ptrs, 0, F._INT_MAX, stream)
                 else:
                     err = lib.flash_fwd_sm90(*ptrs, 0, s if name == "span" else F._INT_MAX, stream)
                 assert err == 0, (name, err)
@@ -109,6 +117,38 @@ def main() -> int:
                     "span_ms": med["span"], "this_over_parent": med["this"] / med["parent"],
                     "span_over_this": med["span"] / med["this"], "runs": times,
                     "bitwise_equal": {n: bool(torch.equal(outs[n], outs["parent"])) for n in ("this", "span")}})
+
+            wrapped = {}
+
+            def launcher():
+                o = torch.empty_like(q)
+                F.flash_fwd(q, k, v, o)
+                wrapped["launcher"] = o
+
+            def op():
+                wrapped["op"] = F.flash_attention(q, k, v)
+
+            def host_us(fn, n=50):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) / n * 1e6
+
+            w_ms = {"launcher": [], "op": []}
+            w_us = {"launcher": [], "op": []}
+            with torch.no_grad():
+                for _ in range(args.reps):
+                    for name, fn in (("launcher", launcher), ("op", op), ("op", op), ("launcher", launcher)):
+                        w_ms[name].append(C.cuda_ms(fn))
+                        w_us[name].append(host_us(fn))
+            wm = {k: statistics.median(v) for k, v in w_ms.items()}
+            wu = {k: statistics.median(v) for k, v in w_us.items()}
+            C.emit({"shape": [b, s, h, kv, hd], "wrapper": True, "launcher_ms": wm["launcher"], "op_ms": wm["op"],
+                    "op_over_launcher": wm["op"] / wm["launcher"], "launcher_host_us": wu["launcher"],
+                    "op_host_us": wu["op"], "op_over_launcher_host": wu["op"] / wu["launcher"],
+                    "bitwise_equal": bool(torch.equal(wrapped["op"], wrapped["launcher"]))})
             del q, k, v, outs
             torch.cuda.empty_cache()
     print(C.smi("name,power.limit"), flush=True)

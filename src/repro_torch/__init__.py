@@ -24,14 +24,19 @@ Module layout mirrors ``repro`` so each counterpart is found by path::
                            transformer's prefill_step and serve_step;
                            GAT (gnn.py), the recsys zoo (recsys.py),
                            embeddings and retrieval top-k
-    sharding/              logical-axis rules (axes.py) and the
-                           collectives with a backward (collectives.py)
+    sharding/              logical-axis rules and DTensor placements
+                           (axes.py), the collectives with a backward
+                           (collectives.py)
     hd/                    the ``set_distance``, ``search`` and
                            ``search_batch`` front doors
     index/                 ``SetStore``, the certified cascade search and
                            its batched multi-query form
     serve/                 ``ProHDService`` and the async ``QueryEngine``
-    launch/serve.py        the serving driver (``python -m``)
+    launch/                the serving and training launchers; mesh.py (the
+                           production meshes), specs.py (every dry-run
+                           cell) and dryrun.py (``python -m``)
+    analysis/              the bytes model, the roofline and its
+                           counters, the report tables
     train/                 heartbeats and retry-with-recovery
     obs/, reliability/     spans and metrics; typed faults and injection
     data/pointclouds.py    the paper's synthetic clouds and the corpus

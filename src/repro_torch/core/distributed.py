@@ -50,6 +50,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch.core import projections
 from repro_torch.core import selection as sel_mod
@@ -118,11 +119,17 @@ def batch_group(mesh, batch_axes: Sequence[str] = ("data",)):
     if len(axes) == 1:
         return mesh.get_group(axes[0])
     flat = _FLAT_GROUPS.setdefault(mesh, {})
+    # a mesh equal to one of a process group since destroyed must not get its groups
+    if axes in flat and flat[axes] not in dist.distributed_c10d._world.pg_map:
+        del flat[axes]
     if axes not in flat:
         names = tuple(mesh.mesh_dim_names)
         dims = [names.index(ax) for ax in axes]
         others = [i for i in range(mesh.mesh.ndim) if i not in dims]
-        rows = mesh.mesh.permute(others + dims).reshape(-1, batch_size(mesh, axes)).tolist()
+        # the mesh's rank table is host data: read it outside any dispatch mode
+        # (under a FakeTensorMode, as in the dry run, it would turn fake)
+        with _disable_current_modes():
+            rows = mesh.mesh.permute(others + dims).reshape(-1, batch_size(mesh, axes)).tolist()
         flat[axes], _ = dist.new_subgroups_by_enumeration(rows)
     return flat[axes]
 

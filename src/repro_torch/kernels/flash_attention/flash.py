@@ -45,7 +45,13 @@ product, and ``acc / max(l, 1e-30)`` cast to q's dtype.
 * :func:`flash_attention` is the wrapper: a kernel on CUDA tensors, the
   plain version on CPU tensors, never the one in place of the other.  Its
   output carries no gradient, so on CUDA tensors that require grad, under
-  grad mode, the launcher raises (:func:`repro_torch.kernels.refuse_grad`).
+  grad mode, it raises (:func:`repro_torch.kernels.refuse_grad`).  On CUDA
+  tensors it calls the custom op ``torch.ops.repro_torch.flash_fwd``, whose
+  body is the launcher.  Its fake (``register_fake``) gives the output's
+  shape and dtype and launches nothing, so a trace under ``FakeTensorMode``
+  (the dry run, ``launch.dryrun``) reaches kernel 4 as one op; its FLOP
+  formula (``register_flop_formula``) counts 4·hd per visible (query, key)
+  pair (:func:`visible_pairs`), the count behind the kernel's bound.
 * :func:`flash_attention_grad` is attention under autograd: the wrapper's
   forward, unchanged, in a ``torch.autograd.Function`` that saves q, k and
   v; its backward is :func:`flash_attention_backward_plain`, the
@@ -69,14 +75,16 @@ import ctypes
 import operator
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.utils.checkpoint
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build, refuse_grad
 
 __all__ = ["NEG", "MAX_HEAD_DIM", "INSTANCES", "ROUTES", "SOURCE", "SOURCE_SM90", "build", "expand_kv",
            "flash_fwd", "flash_attention", "flash_attention_grad", "flash_attention_backward_plain",
-           "flash_attention_plain", "instance", "route"]
+           "flash_attention_plain", "instance", "route", "visible_pairs"]
 
 NEG = -1e30  # large-finite: no inf − inf in the online softmax
 MAX_HEAD_DIM = 256
@@ -221,6 +229,39 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+@torch.library.custom_op("repro_torch::flash_fwd", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, q_offset: int,
+              window: int | None) -> torch.Tensor:
+    """Kernel 4 as an op: a new output, filled by :func:`flash_fwd`."""
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    flash_fwd(q, k, v, out, causal=causal, q_offset=q_offset, window=window)
+    return out
+
+
+@_flash_op.register_fake
+def _flash_op_fake(q, k, v, causal, q_offset, window):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+def visible_pairs(sq: int, sk: int, *, causal: bool = True, q_offset: int = 0, window: int | None = None) -> int:
+    """The (query, key) pairs one head attends: Sq·Sk without the causal
+    mask; with it, row i (at position ``q_offset + i``) sees keys ``j ≤
+    q_offset + i`` with ``q_offset + i − j < window``."""
+    if not causal:
+        return sq * sk
+    pos = q_offset + np.arange(sq, dtype=np.int64)
+    hi = np.minimum(pos, sk - 1)
+    lo = np.zeros_like(pos) if window is None else np.maximum(pos - window + 1, 0)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_fwd)
+def _flash_flops(q_shape, k_shape, v_shape, causal, q_offset, window, *args, **kwargs) -> int:
+    b, sq, h, hd = q_shape
+    return 4 * hd * b * h * visible_pairs(sq, k_shape[1], causal=causal, q_offset=q_offset, window=window)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                     q_offset: int = 0, window: int | None = None) -> torch.Tensor:
     """Forward attention, q (B, Sq, H, hd), k/v (B, Sk, KV, hd) → (B, Sq, H, hd)
@@ -229,10 +270,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     raises); CPU tensors through :func:`flash_attention_plain`."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset, window=window)
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    flash_fwd(q, k, v, out, causal=causal, q_offset=q_offset, window=window)
-    return out
+    refuse_grad("flash.flash_attention", q, k, v)
+    if q.device.type != "cuda":  # the launcher's refusal, before the op's meta kernel could answer
+        raise ValueError(f"flash_fwd takes CUDA tensors, got {q.device}")
+    return torch.ops.repro_torch.flash_fwd(q, k, v, causal, operator.index(q_offset), window)
 
 
 def expand_kv(k: torch.Tensor, groups: int) -> torch.Tensor:

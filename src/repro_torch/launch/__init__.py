@@ -1,1 +1,1 @@
-"""Command-line launchers of the port (``python -m repro_torch.launch.serve``)."""
+"""Launchers of the port: ``python -m repro_torch.launch.{serve,train,dryrun}``, the meshes and the dry-run cells."""

@@ -71,14 +71,17 @@ def embedding_bag(
     num_segments: int,
     *,
     combiner: str = "sum",
+    vocab: int | None = None,
 ) -> torch.Tensor:
     """torch.nn.EmbeddingBag equivalent: gather rows, segment-reduce.
 
     flat_ids: (T,) indices into table; segment_ids: (T,) bag index per id
     (monotone not required).  Returns (num_segments, D); an empty bag is 0
-    for "sum" and "mean", −inf for "max".
+    for "sum" and "mean", −inf for "max".  With ``vocab`` (the global row
+    count) the rows come from :func:`sharded_lookup`, so under rules with a
+    "model" axis ``table`` may be this rank's block of rows.
     """
-    emb = lookup(table, flat_ids)
+    emb = lookup(table, flat_ids) if vocab is None else sharded_lookup(table, flat_ids, vocab=vocab)
     if combiner == "max":
         return segment_max(emb, segment_ids, num_segments)
     if combiner not in ("sum", "mean"):

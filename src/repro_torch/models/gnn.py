@@ -22,10 +22,16 @@ sums are all-reduced, so every rank returns the global loss.  Under
 autograd every rank runs the backward of its copy of the loss and the
 parameter gradients of the ranks add up to the global loss's
 (``sharding.collectives``).
+
+The reference's baseline layout, edge-parallel with the node table whole
+on every rank, is ``gat_forward(..., group=g)``: each rank's edge slice
+is reduced into per-node partials that are all-reduced over ``g``.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed._functional_collectives as funcol
+import torch.distributed.nn.functional as dist_nn
 import torch.nn.functional as F
 
 from repro_torch.configs.base import GNNConfig
@@ -74,32 +80,43 @@ def _project(x, lp):
     return h, torch.sum(h * lp.a_src, dim=-1), torch.sum(h * lp.a_dst, dim=-1)
 
 
-def _aggregate(h_src_rows, a_src, a_dst, lp, src, dst, emask, n_nodes, negative_slope, concat_heads):
+def _aggregate(h_src_rows, a_src, a_dst, lp, src, dst, emask, n_nodes, negative_slope, concat_heads,
+               group=None):
     """SDDMM → segment-softmax over each dst's incoming edges → SpMM.
     ``h_src_rows`` and ``a_src`` are indexed by ``src``; ``a_dst`` and the
-    output (n_nodes rows) by ``dst``."""
+    output (n_nodes rows) by ``dst``.  With ``group``, the edges are this
+    rank's slice of the group's (edge-parallel): the per-node max and the
+    two per-node sums are reduced over the group (the sums through an
+    all-reduce whose backward all-reduces too, its exact adjoint)."""
     e = a_src.index_select(0, src) + a_dst.index_select(0, dst)
     e = F.leaky_relu(e, negative_slope)                               # (E, H)
     e = torch.where(emask[:, None] > 0, e, -1e30)
     e_max = torch.clamp(segment_max(e, dst, n_nodes), min=-1e29)      # nodes with no real edges
+    if group is not None:  # the softmax's shift: its gradient cancels, so it is held constant
+        e_max = funcol.all_reduce(e_max.detach(), "max", group)
     w = torch.exp(e - e_max.index_select(0, dst)) * emask[:, None]
     denom = segment_sum(w, dst, n_nodes)
+    if group is not None:
+        denom = dist_nn.all_reduce(denom, group=group)
     w = w / torch.clamp(denom.index_select(0, dst), min=1e-9)
     msg = h_src_rows.index_select(0, src) * w[..., None]              # (E, H, Dh)
-    out = segment_sum(msg, dst, n_nodes) + lp.b
+    out = segment_sum(msg, dst, n_nodes)
+    if group is not None:
+        out = dist_nn.all_reduce(out, group=group)
+    out = out + lp.b
     if concat_heads:
         return out.reshape(n_nodes, -1)
     return torch.mean(out, dim=1)
 
 
-def _gat_layer(x, lp, src, dst, emask, n_nodes, *, negative_slope, concat_heads):
+def _gat_layer(x, lp, src, dst, emask, n_nodes, *, negative_slope, concat_heads, group=None):
     """x: (N, F_in) → (N, H·F_out) (concat) or (N, F_out) (head-mean).
 
     emask: (E,) {0,1} — padded/invalid edges contribute nothing (their
     softmax logit is -1e30).
     """
     h, a_src, a_dst = _project(x, lp)
-    return _aggregate(h, a_src, a_dst, lp, src, dst, emask, n_nodes, negative_slope, concat_heads)
+    return _aggregate(h, a_src, a_dst, lp, src, dst, emask, n_nodes, negative_slope, concat_heads, group)
 
 
 def with_self_loops(src, dst, n_nodes, *, pad_to: int | None = None):
@@ -129,15 +146,22 @@ def _edges(batch):
 
 
 @lm_precision()
-def gat_forward(params: ParamTree, batch: dict, cfg: GNNConfig) -> torch.Tensor:
+def gat_forward(params: ParamTree, batch: dict, cfg: GNNConfig, *, group=None) -> torch.Tensor:
     """batch: feats (N,F), edge_src/edge_dst (E,) int (self-loops included
-    by the pipeline — see with_self_loops), optional edge_mask (E,)."""
+    by the pipeline — see with_self_loops), optional edge_mask (E,).
+
+    With ``group`` (the reference's edge-parallel layout): the node table is
+    whole on every rank and the edge arrays are this rank's slice of the
+    group's; the node outputs are the same on every rank.  Each rank's
+    gradient is its share: the ranks' gradients sum to the gradient of one
+    copy of the loss."""
     x = batch["feats"]
     n = x.shape[0]
     src, dst, emask = _edges(batch)
-    h = _gat_layer(x, params.l1, src, dst, emask, n, negative_slope=cfg.negative_slope, concat_heads=True)
+    kw = dict(negative_slope=cfg.negative_slope, group=group)
+    h = _gat_layer(x, params.l1, src, dst, emask, n, concat_heads=True, **kw)
     h = F.elu(h)
-    return _gat_layer(h, params.l2, src, dst, emask, n, negative_slope=cfg.negative_slope, concat_heads=False)
+    return _gat_layer(h, params.l2, src, dst, emask, n, concat_heads=False, **kw)
 
 
 def _node_ce(logits, labels, label_mask, reduce=lambda t: t):
@@ -153,15 +177,17 @@ def _node_ce(logits, labels, label_mask, reduce=lambda t: t):
 
 
 @lm_precision()
-def gat_node_loss(params: ParamTree, batch: dict, cfg: GNNConfig):
-    """Node classification CE on masked (labelled) nodes."""
-    return _node_ce(gat_forward(params, batch, cfg), batch["labels"], batch["label_mask"])
+def gat_node_loss(params: ParamTree, batch: dict, cfg: GNNConfig, *, group=None):
+    """Node classification CE on masked (labelled) nodes (``group``: see
+    :func:`gat_forward`)."""
+    return _node_ce(gat_forward(params, batch, cfg, group=group), batch["labels"], batch["label_mask"])
 
 
 @lm_precision()
-def gat_graph_loss(params: ParamTree, batch: dict, cfg: GNNConfig):
-    """Graph classification: mean-readout per graph_id then CE (molecule)."""
-    node_out = gat_forward(params, batch, cfg)  # (N, C)
+def gat_graph_loss(params: ParamTree, batch: dict, cfg: GNNConfig, *, group=None):
+    """Graph classification: mean-readout per graph_id then CE (molecule)
+    (``group``: see :func:`gat_forward`)."""
+    node_out = gat_forward(params, batch, cfg, group=group)  # (N, C)
     gids = batch["graph_ids"]
     labels = batch["labels"].long()
     n_graphs = labels.shape[0]

@@ -2,8 +2,23 @@
 (prefill and cached decode), SwiGLU, and GShard MoE (``moe_block`` for
 prefill, ``moe_dense_decode`` for decode).
 
-Counterpart of ``repro/models/layers.py``.  The reference's ``shard(...)``
-annotations are dropped: the port runs on one device with no mesh.
+Counterpart of ``repro/models/layers.py``.  Every function takes plain
+tensors (one device) or DTensors (a mesh, under the rules of
+``sharding.axes``).  On DTensors the ops GSPMD partitions for the
+reference run in ``local_map`` regions on each rank's block, with the
+collectives GSPMD derives made explicit:
+
+* ``causal_attention`` runs per rank on its local heads (kernel 4 on the
+  card).  Where the query heads are sharded and the kv heads are whole
+  (grouped-query attention with fewer kv heads than "model" ranks), each
+  rank slices the kv heads its query heads read, so the local call sees
+  the same grouping; a sharding that splits a kv group is refused.
+* ``decode_attention`` on a cache sharded along S combines each rank's
+  max, exp-sum and weighted values by one max and two sums over the
+  sequence-sharding dims; the cache is never gathered.
+* ``moe_block`` and ``moe_dense_decode`` route every token on every rank
+  (the router is replicated) and run the experts, or the FFN columns, that
+  the rank holds; the output is a partial sum over "model".
 
 Precision: where the reference upcasts (``astype(f32)``) or contracts with
 ``preferred_element_type=f32``, the port computes in fp32 — in float64 when
@@ -30,7 +45,13 @@ from typing import NamedTuple
 
 import torch
 
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
 from repro_torch.kernels.flash_attention import flash as F
+from repro_torch.sharding.axes import block_of, replicated
+from repro_torch.sharding.collectives import all_gather_rows
 
 __all__ = ["wide_dtype", "matmul_wide", "einsum_wide", "rmsnorm", "rope", "AttnSpec",
            "causal_attention", "decode_attention", "swiglu", "MoEMetrics", "MoERoute", "moe_capacity",
@@ -69,7 +90,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     Angles in fp32, as the reference computes them."""
     hd = x.shape[-1]
     half = hd // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    freqs = replicated(theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half), x)
     ang = positions[..., None].to(torch.float32) * freqs  # (..., S, half)
     cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]
@@ -94,7 +115,10 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, spec: At
     CUDA: kernel 4, with ``spec.window`` and ``q_offset``; when a gradient
     is recorded, through ``flash.flash_attention_grad``, whose backward
     recomputes the plain recurrence over ``spec.chunk`` keys at a time.
-    CPU: the plain chunked recurrence over ``spec.chunk`` keys at a time."""
+    CPU: the plain chunked recurrence over ``spec.chunk`` keys at a time.
+    DTensors: the same, per rank on its local heads (module docstring)."""
+    if isinstance(q, DTensor):
+        return _causal_attention_sharded(q, k, v, spec, q_offset)
     if q.device.type == "cpu":
         return F.flash_attention_plain(q, k, v, causal=True, chunk=spec.chunk,
                                        q_offset=q_offset, window=spec.window)
@@ -104,11 +128,63 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, spec: At
     return F.flash_attention(q, k, v, causal=True, q_offset=q_offset, window=spec.window)
 
 
+def _mesh_dims(t: DTensor, placement) -> list[int]:
+    """The mesh dims of more than one rank on which ``t`` has ``placement``."""
+    return [i for i, p in enumerate(t.placements) if p == placement and t.device_mesh.size(i) > 1]
+
+
+def _causal_attention_sharded(q: DTensor, k: DTensor, v: DTensor, spec: AttnSpec, q_offset: int):
+    """:func:`causal_attention` on DTensors: q (B, S, H, hd) and k, v (B, S,
+    KV, hd) sharded on B and the heads only, each rank's local heads through
+    the one-device path.  Where q's heads are sharded over a mesh dim on
+    which k's are whole, the rank's kv heads are sliced out, and their
+    gradient is a partial sum over that dim."""
+    mesh = q.device_mesh
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if any(p.is_partial() or (p.is_shard() and p.dim not in (0, 2)) for p in t.placements):
+            raise ValueError(f"{name} must be sharded on batch and heads only, got {t.placements}")
+    h_loc, h_off = block_of(q, 2)
+    kv_loc, kv_off = block_of(k, 2)
+    groups = spec.n_heads // spec.n_kv_heads
+    sel = None
+    if kv_loc * groups == h_loc and kv_off * groups == h_off:
+        kv_grad = list(k.placements)  # both sharded alike (or both whole)
+    elif kv_loc == spec.n_kv_heads:
+        lo, hi = h_off // groups, (h_off + h_loc - 1) // groups + 1
+        if (hi - lo) * groups != h_loc and hi - lo != 1:
+            raise ValueError(f"query heads [{h_off}, {h_off + h_loc}) split a group of {groups}: "
+                             f"no local call has their grouping")
+        sel = (lo, hi)
+        head_dims = [i for i, p in enumerate(q.placements) if p == Shard(2) and k.placements[i] == Replicate()]
+        kv_grad = [Partial() if i in head_dims else p for i, p in enumerate(k.placements)]
+    else:
+        raise ValueError(f"kv heads {k.placements} and query heads {q.placements} are sharded differently")
+
+    def body(ql, kl, vl):
+        if sel is not None:
+            kl, vl = kl[:, :, sel[0]:sel[1]], vl[:, :, sel[0]:sel[1]]
+        local = spec._replace(n_heads=ql.shape[2], n_kv_heads=kl.shape[2])
+        return causal_attention(ql, kl, vl, local, q_offset=q_offset)
+
+    return local_map(body, out_placements=list(q.placements), in_placements=(q.placements, k.placements, v.placements),
+                     in_grad_placements=(q.placements, kv_grad, kv_grad), device_mesh=mesh)(q, k, v)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      spec: AttnSpec, *, length) -> torch.Tensor:
     """One-token decode against the cache.  q (B, H, hd); caches (B, S, KV, hd);
     positions ``< length`` attend (``length`` an int or a 0-d tensor).
-    Scale folded into q in fp32, as the reference does."""
+    Scale folded into q in fp32, as the reference does.  On a cache that is
+    a DTensor sharded along S, each rank attends over its block and the
+    blocks combine by a max and two sums over the sharding dims."""
+    if isinstance(k_cache, DTensor):
+        return _decode_attention_sharded(q, k_cache, v_cache, spec, length)
+    return _decode_local(q, k_cache, v_cache, spec, length)
+
+
+def _decode_local(q, k_cache, v_cache, spec: AttnSpec, length, *, s_off: int = 0, group=None):
+    """:func:`decode_attention` over cache positions ``[s_off, s_off + S)``;
+    with ``group`` the max and the sums run over it."""
     b, h, hd = q.shape
     s = k_cache.shape[1]
     kv = spec.n_kv_heads
@@ -117,17 +193,45 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     scale = 1.0 / (hd ** 0.5)
     qg = q.reshape(b, kv, groups, hd).to(wide) * scale
     logits = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.to(wide))  # (B, KV, G, S)
-    pos = torch.arange(s, device=q.device)
+    pos = s_off + torch.arange(s, device=q.device)
     valid = pos < length
     if spec.window is not None:
         valid &= pos >= (length - spec.window)
     logits = torch.where(valid, logits, F.NEG)
     m = logits.amax(dim=-1, keepdim=True)
+    if group is not None:
+        m = funcol.all_reduce(m, "max", group)
     p = torch.exp(logits - m)
     denom = p.sum(dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.to(wide))
+    if group is not None:
+        denom = funcol.all_reduce(denom, "sum", group)
+        out = funcol.all_reduce(out, "sum", group)
     out = out / denom[..., None]
     return out.reshape(b, h, hd).to(q.dtype)
+
+
+def _decode_attention_sharded(q, k_cache: DTensor, v_cache: DTensor, spec: AttnSpec, length):
+    """Split-KV decode: the cache (B, S, KV, hd) sharded on B and S; q is
+    replicated over the S-sharding dims (its heads gathered), and the
+    output follows q's placements."""
+    mesh = k_cache.device_mesh
+    if any(p.is_partial() or (p.is_shard() and p.dim not in (0, 1)) for p in k_cache.placements):
+        raise ValueError(f"the cache must be sharded on batch and S only, got {k_cache.placements}")
+    seq_dims = _mesh_dims(k_cache, Shard(1))
+    if len(seq_dims) > 1:
+        raise ValueError(f"S may be sharded over one mesh dim, got {k_cache.placements}")
+    q_place = [k_cache.placements[i] if k_cache.placements[i] == Shard(0) else Replicate()
+               for i in range(mesh.ndim)]
+    s_loc, s_off = block_of(k_cache, 1)
+    group = (mesh, seq_dims[0]) if seq_dims else None
+    ln = length.to_local() if isinstance(length, DTensor) else length
+
+    def body(ql, kl, vl):
+        return _decode_local(ql, kl, vl, spec, ln, s_off=s_off, group=group)
+
+    return local_map(body, out_placements=q_place, in_placements=(q_place, k_cache.placements, v_cache.placements),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k_cache, v_cache)
 
 
 def swiglu(x: torch.Tensor, wi_gate: torch.Tensor, wi_up: torch.Tensor,
@@ -235,16 +339,72 @@ def moe_block_routed(x: torch.Tensor, router_w: torch.Tensor, wi_gate: torch.Ten
     xs = _token_groups(x, group_size)
     cap = moe_capacity(xs.shape[1], top_k, capacity_factor, router_w.shape[1])
     route = moe_route(xs, router_w, top_k=top_k, cap=cap, experts=experts)
-    dispatch = (route.combine > 0.0).to(x.dtype)
-    xd = einsum_wide("gsec,gsd->gecd", dispatch, xs).to(x.dtype)
+    out = _moe_experts(xs, route.combine, wi_gate, wi_up, wo)
+    return out.reshape(x.shape).to(x.dtype), route.metrics, route.experts
+
+
+def _moe_experts(xs, combine, wi_gate, wi_up, wo):
+    """Dispatch, the experts' SwiGLU and combine for the experts of
+    ``combine`` (G, S, E, C) and the weights (E, D, F) / (E, F, D)."""
+    dispatch = (combine > 0.0).to(xs.dtype)
+    xd = einsum_wide("gsec,gsd->gecd", dispatch, xs).to(xs.dtype)
     del dispatch
     hg = einsum_wide("gecd,edf->gecf", xd, wi_gate)
     hu = einsum_wide("gecd,edf->gecf", xd, wi_up)
-    h = (torch.nn.functional.silu(hg) * hu).to(x.dtype)
+    h = (torch.nn.functional.silu(hg) * hu).to(xs.dtype)
     del hg, hu
     y = torch.einsum("gecf,efd->gecd", h, wo)  # in x's dtype, as the reference's
-    out = einsum_wide("gsec,gecd->gsd", route.combine.to(x.dtype), y)
-    return out.reshape(x.shape).to(x.dtype), route.metrics, route.experts
+    return einsum_wide("gsec,gecd->gsd", combine.to(xs.dtype), y)
+
+
+def _group_span(x: DTensor, g_size: int):
+    """None when each rank's tokens hold whole routing groups; else (the
+    process group over x's token-sharding dims, the k ranks a group spans,
+    this rank's index in that process group)."""
+    mesh = x.device_mesh
+    dims = [i for i, p in enumerate(x.placements) if p == Shard(0) and mesh.size(i) > 1]
+    t_loc = x.numel() // x.shape[-1]
+    for i in dims:
+        t_loc //= mesh.size(i)
+    if t_loc % g_size == 0:
+        return None
+    if g_size % t_loc:
+        raise ValueError(f"a rank's {t_loc} tokens neither hold nor divide routing groups of {g_size}")
+    from repro_torch.core.distributed import batch_group
+
+    group = batch_group(mesh, [mesh.mesh_dim_names[i] for i in dims])
+    return group, g_size // t_loc, torch.distributed.get_rank(group)
+
+
+def _moe_sharded(x: DTensor, router_w, wi_gate, wi_up, wo, local_fn, n_out: int):
+    """Run ``local_fn(x, router, wi_gate, wi_up, wo, e_off)`` per rank on its
+    tokens, the whole router and its block of the experts (E sharded) or of
+    the FFN columns (F sharded); x must be whole on the mesh dims that
+    shard the weights.  The first output is a partial sum over those dims
+    with x's other placements; the rest (per-token-group means) are means
+    over every mesh dim.  A replicated input's gradient is a partial sum:
+    each rank's share comes from its own tokens and experts."""
+    mesh = x.device_mesh
+    ep_dims = [i for i, p in enumerate(wi_gate.placements) if p.is_shard() and p.dim in (0, 2)]
+    if any(x.placements[i] != Replicate() for i in ep_dims):
+        raise ValueError(f"tokens {x.placements} must be whole over the experts' mesh dims {ep_dims}")
+    _, e_off = block_of(wi_gate, 0)
+    out_place = [Partial() if i in ep_dims else p for i, p in enumerate(x.placements)]
+    # a mean over the ranks as a partial sum of each rank's share: the
+    # gradient of a local_map output reaches each rank whole, which is right
+    # for a sum and not for an average
+    mean_place = [Partial()] * mesh.ndim
+    n_ranks = mesh.size()
+    ins = (x, router_w, wi_gate, wi_up, wo)
+    in_place = tuple(t.placements for t in ins)
+
+    def body(*local):
+        out, *means = local_fn(*local, e_off)
+        return (out, *(m / n_ranks for m in means))
+
+    return local_map(body, out_placements=(out_place, *[mean_place] * (n_out - 1)), in_placements=in_place,
+                     in_grad_placements=tuple([Partial() if p == Replicate() else p for p in pl] for pl in in_place),
+                     device_mesh=mesh)(*ins)
 
 
 def moe_block(x: torch.Tensor, router_w: torch.Tensor, wi_gate: torch.Tensor, wi_up: torch.Tensor,
@@ -256,7 +416,30 @@ def moe_block(x: torch.Tensor, router_w: torch.Tensor, wi_gate: torch.Tensor, wi
     (E, F, D).  Tokens are split into groups of ``group_size``; each group
     has expert capacity C = ``moe_capacity``.  Over-capacity (token, choice)
     pairs are dropped (their combine weight is 0); ``dropped_frac`` reports
-    them."""
+    them.  On DTensors each rank routes its tokens over every expert and
+    runs the experts (or FFN columns) it holds: ``out`` is then a partial
+    sum over "model", the metrics means over the mesh."""
+    if isinstance(x, DTensor):
+        g_size = min(group_size, x.numel() // x.shape[-1])  # the reference's groups, of all tokens
+        span = _group_span(x, g_size)
+
+        def local(xl, rl, wg, wu, wol, e_off):
+            tokens = xl.reshape(-1, xl.shape[-1])
+            if span is not None:  # the group holds k ranks' tokens: route it whole, keep this rank's rows
+                group, k, r = span
+                tokens = all_gather_rows(tokens, group)[(r // k) * g_size:(r // k + 1) * g_size]
+            xs = _token_groups(tokens, g_size)
+            route = moe_route(xs, rl, top_k=top_k, cap=moe_capacity(xs.shape[1], top_k, capacity_factor,
+                                                                   rl.shape[1]))
+            combine = route.combine[:, :, e_off:e_off + wg.shape[0]]
+            out = _moe_experts(xs, combine, wg, wu, wol).reshape(-1, xl.shape[-1])
+            if span is not None:
+                t_loc = xl.numel() // xl.shape[-1]
+                out = out[(r % k) * t_loc:(r % k + 1) * t_loc]
+            return out.reshape(xl.shape).to(xl.dtype), route.metrics.aux_loss, route.metrics.dropped_frac
+
+        out, aux, dropped = _moe_sharded(x, router_w, wi_gate, wi_up, wo, local, 3)
+        return out, MoEMetrics(aux_loss=aux, dropped_frac=dropped)
     out, metrics, _ = moe_block_routed(x, router_w, wi_gate, wi_up, wo, top_k=top_k,
                                        capacity_factor=capacity_factor, group_size=group_size)
     return out, metrics
@@ -268,10 +451,22 @@ def moe_dense_decode(x: torch.Tensor, router_w: torch.Tensor, wi_gate: torch.Ten
     the top-k gates renormalised.  The top k are every probability at or
     above the k-th largest, so a tie at that threshold takes more than k
     experts, as the reference's does."""
+    if isinstance(x, DTensor):
+        def local(xl, rl, wg, wu, wol, e_off):
+            return _moe_dense_local(xl, rl, wg, wu, wol, top_k, e_off),
+
+        return _moe_sharded(x, router_w, wi_gate, wi_up, wo, local, 1)[0]
+    return _moe_dense_local(x, router_w, wi_gate, wi_up, wo, top_k, 0)
+
+
+def _moe_dense_local(x, router_w, wi_gate, wi_up, wo, top_k: int, e_off: int):
+    """:func:`moe_dense_decode` over the experts ``[e_off, e_off + E_local)``
+    of the weights given (all of them at ``e_off`` 0 and full weights)."""
     probs = torch.softmax(matmul_wide(x, router_w), dim=-1)  # (B, E)
     thresh = torch.topk(probs, top_k, dim=-1).values[:, -1:]
     gates = torch.where(probs >= thresh, probs, 0.0)
     gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
+    gates = gates[:, e_off:e_off + wi_gate.shape[0]]
     hg = einsum_wide("bd,edf->bef", x, wi_gate)
     hu = einsum_wide("bd,edf->bef", x, wi_up)
     h = (torch.nn.functional.silu(hg) * hu).to(x.dtype)

@@ -35,13 +35,15 @@ float64 oracle.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_nn
 import torch.nn.functional as F
 
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.device import lm_precision, widen
 from repro_torch.models.embeddings import embedding_bag, sharded_lookup
 from repro_torch.models.param_tree import ParamTree, spec_tree
-from repro_torch.sharding.axes import MeshRules
+from repro_torch.sharding.axes import MeshRules, current_rules
 
 __all__ = ["N_PROFILE", "gru_scan", "augru_scan", "get_model",
            "fm_init", "fm_param_specs", "fm_score", "fm_loss", "fm_query_embedding", "fm_candidate_table",
@@ -224,6 +226,40 @@ def _dien_seq(params, batch, cfg):
                       sharded_lookup(params.cate, batch["seq_cates"], vocab=v_cate)], dim=-1)  # (B, T, 2D)
 
 
+def _batch_group():
+    """The process group of the batch's rows under the current rules, or
+    None when the batch is whole (no rules, no mesh, no batch axes)."""
+    rules = current_rules()
+    if rules.mesh is None or not rules.batch:
+        return None
+    from repro_torch.core.distributed import batch_group
+
+    return batch_group(rules.mesh, rules.batch)
+
+
+def _batch_sum(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the batch's ranks (the reference's sum over a
+    batch-sharded axis); its backward sums too, the exact adjoint, since
+    every rank's loss uses the total."""
+    group = _batch_group()
+    return t if group is None else dist_nn.all_reduce(t, group=group)
+
+
+def _roll_batch(x: torch.Tensor) -> torch.Tensor:
+    """``roll(x, 1)`` along the batch: each row takes the one before it, the
+    first the last.  Under rules with batch axes and a mesh, ``x`` is this
+    rank's block of the batch's rows and the roll is the global one: the
+    block's first row is the previous rank's last (the reference's
+    ``jnp.roll`` over a batch-sharded axis)."""
+    group = _batch_group()
+    if group is None:
+        return torch.roll(x, 1, dims=0)
+    from repro_torch.sharding.collectives import all_gather_rows
+
+    lasts = all_gather_rows(x[-1:], group)  # every rank's last row, in rank order
+    return torch.cat([lasts[dist.get_rank(group) - 1][None], x[:-1]])
+
+
 def _dien_features(params, batch, cfg):
     v_item, v_cate, v_user = cfg.vocab_sizes
     seq_e = _dien_seq(params, batch, cfg)
@@ -234,7 +270,7 @@ def _dien_features(params, batch, cfg):
     prof_ids = batch["profile_ids"]  # (B, P) multi-hot → bag-mean
     prof = embedding_bag(params.user, prof_ids.reshape(-1),
                          torch.arange(b, device=prof_ids.device).repeat_interleave(prof_ids.shape[1]),
-                         num_segments=b, combiner="mean")
+                         num_segments=b, combiner="mean", vocab=v_user)
 
     h0 = seq_e.new_zeros((b, cfg.gru_dim))
     _, interest = gru_scan(params.gru, seq_e, h0, mask=mask)         # (B, T, GH)
@@ -242,14 +278,14 @@ def _dien_features(params, batch, cfg):
     # DIEN auxiliary loss: interest state at t should predict behaviour t+1
     # against an in-batch negative (rolled sequence).
     nxt = seq_e[:, 1:]
-    neg = torch.roll(seq_e[:, 1:], 1, dims=0)
+    neg = _roll_batch(seq_e[:, 1:])
     pred = interest[:, :-1] @ params.aux_w                           # (B, T-1, 2D)
     m = mask[:, 1:]
     pos_logit = torch.sum(pred * nxt, -1)
     neg_logit = torch.sum(pred * neg, -1)
     zero = torch.zeros_like(pos_logit)
-    aux = (torch.sum((torch.logaddexp(zero, -pos_logit) + torch.logaddexp(zero, neg_logit)) * m)
-           / torch.clamp(torch.sum(m), min=1.0))
+    aux = (_batch_sum(torch.sum((torch.logaddexp(zero, -pos_logit) + torch.logaddexp(zero, neg_logit)) * m))
+           / torch.clamp(_batch_sum(torch.sum(m)), min=1.0))
 
     # attention of target on interest states → AUGRU
     att_logits = torch.einsum("btg,bg->bt", interest, tgt @ params.att_w.T)

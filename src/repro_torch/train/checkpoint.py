@@ -23,8 +23,15 @@ Fault-tolerance contract: a crash mid-save never corrupts an existing
 checkpoint (tmp dir + rename); a crash between rename and LATEST update
 just loses the pointer — ``latest_step`` falls back to scanning for the
 newest complete directory.  :class:`AsyncCheckpointer` snapshots to host
-memory synchronously and writes on a background thread.  The reference's
-reshard path (``restore(mesh=, specs=)``) waits with sharding.
+memory synchronously and writes on a background thread.
+
+Sharded trees: ``save`` of DTensor leaves gathers each to its full array
+(every rank must call it, as every rank runs the step), writes on rank 0
+alone and ends with a barrier, so the files are the reference's layout
+whatever mesh wrote them.  ``restore(..., mesh=, specs=)`` is the
+reference's elastic reshard: each leaf comes back a DTensor placed by its
+spec on ``mesh``, each rank keeping its block of the full array it reads,
+whatever mesh wrote the checkpoint.
 """
 from __future__ import annotations
 
@@ -41,6 +48,10 @@ from typing import Any, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch.sharding.axes import _is_spec, distribute_tree
 
 __all__ = ["SEP", "atomic_snapshot_dir", "write_latest", "read_latest", "save", "AsyncCheckpointer",
            "latest_step", "restore"]
@@ -86,8 +97,10 @@ def read_latest(root: str | os.PathLike) -> str | None:
     return pointer.read_text().strip()
 
 
-def _flatten(tree, prefix: str = "") -> dict[str, Any]:
+def _flatten(tree, prefix: str = "", is_leaf=lambda _: False) -> dict[str, Any]:
     """{leaf key: leaf} in the tree's order; dict keys' dots become ``/``."""
+    if is_leaf(tree):
+        return {prefix: tree}
     if isinstance(tree, dict):
         items = ((str(k).replace(".", SEP), v) for k, v in tree.items())
     elif isinstance(tree, (tuple, list)):
@@ -96,7 +109,7 @@ def _flatten(tree, prefix: str = "") -> dict[str, Any]:
         return {prefix: tree}
     flat = {}
     for k, v in items:
-        flat.update(_flatten(v, f"{prefix}{SEP}{k}" if prefix else k))
+        flat.update(_flatten(v, f"{prefix}{SEP}{k}" if prefix else k, is_leaf))
     return flat
 
 
@@ -116,6 +129,8 @@ def _unflatten(tree_like, flat: dict[str, Any], prefix: str = ""):
 def _host(x) -> np.ndarray:
     """A leaf as a host numpy array (a bf16 tensor as its uint16 words); a
     tensor is copied, so the caller may update it in place afterwards."""
+    if isinstance(x, DTensor):
+        x = x.detach().full_tensor()
     if isinstance(x, torch.Tensor):
         x = x.detach().to("cpu", copy=True)
         if x.dtype == torch.bfloat16:
@@ -148,10 +163,19 @@ def _write_npz(path: Path, arrays: dict[str, np.ndarray]) -> None:
 
 
 def save(root: str | os.PathLike, step: int, tree: Any, *, extra: dict | None = None) -> Path:
-    """Synchronous atomic save.  Returns the final checkpoint path."""
+    """Synchronous atomic save.  Returns the final checkpoint path.  A tree
+    with DTensor leaves is gathered on every rank (call it on all of them),
+    written by rank 0, and followed by a barrier."""
     root = Path(root)
+    flat = _flatten(tree)
+    if any(isinstance(v, DTensor) for v in flat.values()):
+        arrays = {k: _host(v) for k, v in flat.items()}
+        if dist.get_rank() == 0:
+            save(root, step, arrays, extra=extra)
+        dist.barrier()
+        return root / f"ckpt_{step}"
     with atomic_snapshot_dir(root, f"ckpt_{step}") as tmp:
-        arrays = {k: _host(v) for k, v in _flatten(tree).items()}
+        arrays = {k: _host(v) for k, v in flat.items()}
         _write_npz(tmp / "arrays.npz", arrays)
         manifest = {
             "step": step,
@@ -229,10 +253,15 @@ def _tensor(arr: np.ndarray, dtype_name: str, device) -> torch.Tensor:
 
 
 def restore(root: str | os.PathLike, tree_like: Any, step: int | None = None,
-            device=None) -> tuple[Any, int]:
+            device=None, *, mesh=None, specs: Any | None = None) -> tuple[Any, int]:
     """Restore into the structure of ``tree_like``: ``(tree, step)``, each
     leaf a tensor with the manifest's dtype, on ``device`` or else on the
-    device of ``tree_like``'s leaf (the CPU for a numpy leaf)."""
+    device of ``tree_like``'s leaf (the CPU for a numpy leaf; the mesh's
+    device type with ``mesh``).
+
+    With ``mesh`` and ``specs`` (nested like ``tree_like``, a spec per leaf)
+    every leaf is a DTensor placed by its spec: the elastic-reshard path,
+    whose target mesh may differ from the one the checkpoint was written on."""
     root = Path(root)
     if step is None:
         step = latest_step(root)
@@ -241,8 +270,15 @@ def restore(root: str | os.PathLike, tree_like: Any, step: int | None = None,
     path = root / f"ckpt_{step}"
     dtypes = json.loads((path / "manifest.json").read_text())["dtypes"]
     out = {}
+    flat_specs = _flatten(specs, is_leaf=_is_spec) if mesh is not None and specs is not None else None
     with np.load(path / "arrays.npz") as data:
         for key, like in _flatten(tree_like).items():
+            if flat_specs is not None:
+                dev = device if device is not None else mesh.device_type
+                if dev == "cuda":
+                    dev = torch.device("cuda", torch.cuda.current_device())
+                out[key] = distribute_tree(_tensor(data[key], dtypes[key], dev), flat_specs[key], mesh)
+                continue
             dev = device if device is not None else (like.device if isinstance(like, torch.Tensor) else "cpu")
             out[key] = _tensor(data[key], dtypes[key], dev)
     return _unflatten(tree_like, out), step

@@ -27,12 +27,13 @@ from typing import Any, Callable, Iterator
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.device import lm_precision
 from repro_torch.train import checkpoint as ckpt_mod
 from repro_torch.train import compression as comp_mod
 from repro_torch.train.fault_tolerance import Heartbeat, StragglerDetector, run_with_recovery
-from repro_torch.train.optimizer import Optimizer
+from repro_torch.train.optimizer import Optimizer, _settled
 
 __all__ = ["TrainConfig", "named_params", "make_set_distance_metric", "make_train_step",
            "make_explicit_dp_step", "fit"]
@@ -107,13 +108,21 @@ def _grads(loss_fn, params, named: dict, batch):
 
 
 def _split(batch: dict, microbatches: int) -> list[dict]:
-    """The batch's leading dim cut into ``microbatches`` equal parts."""
+    """The batch's leading dim cut into ``microbatches`` equal parts.  A
+    DTensor is cut on each rank, so every microbatch keeps the batch's
+    placements and each rank's share of it."""
     out = [{} for _ in range(microbatches)]
     for k, x in batch.items():
         b = x.shape[0]
-        if b % microbatches:
-            raise ValueError(f"batch {k!r} of {b} rows does not split into {microbatches} microbatches")
-        for i, part in enumerate(x.reshape(microbatches, b // microbatches, *x.shape[1:])):
+        local = x.to_local() if isinstance(x, DTensor) else x
+        if local.shape[0] % microbatches:
+            raise ValueError(f"batch {k!r} of {local.shape[0]} rows does not split into {microbatches} microbatches")
+        parts = local.reshape(microbatches, local.shape[0] // microbatches, *local.shape[1:])
+        for i, part in enumerate(parts):
+            if isinstance(x, DTensor):
+                part = DTensor.from_local(part, x.device_mesh, x.placements, run_check=False,
+                                          shape=(b // microbatches, *x.shape[1:]),
+                                          stride=torch.empty(b // microbatches, *x.shape[1:], device="meta").stride())
             out[i][k] = part
     return out
 
@@ -139,19 +148,24 @@ def make_train_step(loss_fn: Callable[[Any, Any], tuple[torch.Tensor, dict]], op
         if microbatches == 1:
             loss, metrics, grads = _grads(loss_fn, params, named, batch)
         else:
-            grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for n, p in named.items()}
+            grads = {n: None if isinstance(p, DTensor) else torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                     for n, p in named.items()}
             loss = 0.0
             for mb in _split(batch, microbatches):
                 mb_loss, metrics, g = _grads(loss_fn, params, named, mb)
                 for n, gn in g.items():
-                    grads[n].add_(gn.to(torch.float32))
+                    if grads[n] is None:  # a DTensor gradient keeps its placements (a partial sum stays one)
+                        grads[n] = gn.to(torch.float32)
+                    elif isinstance(gn, DTensor):
+                        grads[n] = grads[n] + gn.to(torch.float32)
+                    else:
+                        grads[n].add_(gn.to(torch.float32))
                 del g
                 loss = loss + mb_loss
-            for g in grads.values():
-                g.div_(microbatches)
+            grads = {n: g / microbatches if isinstance(g, DTensor) else g.div_(microbatches) for n, g in grads.items()}
             loss = loss / microbatches
         _, opt_state = optimizer.update(grads, opt_state, named)
-        gnorm = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2) for g in grads.values()))
+        gnorm = torch.sqrt(sum(_settled(torch.sum(g.to(torch.float32) ** 2)) for g in grads.values()))
         return opt_state, dict(_detached(metrics), loss=loss, grad_norm=gnorm)
 
     return step

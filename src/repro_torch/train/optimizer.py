@@ -13,14 +13,24 @@ both > 1, its ``eps`` of 1e-30 and RMS update clipping.
 named_parameters())``; the reference's nested pytree flattened with ``.``),
 and the state a dict of such dicts.  ``update`` writes each new parameter
 into its tensor in place under ``torch.no_grad()`` and returns the same
-dict: a module's parameters stay the module's.  ``state_specs`` waits with
-sharding.
+dict: a module's parameters stay the module's.
+
+``state_specs(param_specs)`` gives the state's specs from the parameters'
+(the reference's: AdamW's mu, nu and master mirror them, Adafactor's row
+statistics drop the last dim's entry and its column statistics the one
+before, SGD's mu mirrors them; the count is replicated).  On DTensor
+parameters ``init`` makes DTensor state placed like each parameter, and
+``update`` takes each gradient to its state's placements first (a partial
+sum over the batch axes is all-reduced there, or reduce-scattered where the
+state is sharded more finely, as ZeRO-1's is) and each new master to its
+parameter's placements last (ZeRO-1's all-gather).
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 __all__ = ["Optimizer", "adamw", "adafactor", "sgd"]
 
@@ -28,10 +38,11 @@ __all__ = ["Optimizer", "adamw", "adafactor", "sgd"]
 class Optimizer(NamedTuple):
     init: Callable[[dict], dict]
     update: Callable[[dict, dict, dict], tuple[dict, dict]]  # (grads, state, params) → (params, new state)
+    state_specs: Callable[[Any], dict]  # param specs → state specs
 
 
 def _zeros32(params: dict) -> dict:
-    return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device) for n, p in params.items()}
+    return {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()}
 
 
 def _master_copy(params: dict) -> dict:
@@ -39,12 +50,34 @@ def _master_copy(params: dict) -> dict:
     return {n: p.detach().to(torch.float32, copy=True) for n, p in params.items()}
 
 
+def _like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``t`` with ``ref``'s placements (``t`` itself off a mesh)."""
+    if isinstance(t, DTensor) and tuple(t.placements) != tuple(ref.placements):
+        return t.redistribute(ref.device_mesh, ref.placements)
+    return t
+
+
 @torch.no_grad()
 def _write(params: dict, master: dict) -> dict:
     """Each parameter ← its master, cast to the parameter's dtype."""
     for n, p in params.items():
-        p.copy_(master[n].to(p.dtype))
+        p.copy_(_like(master[n], p).to(p.dtype))
     return params
+
+
+def _settled(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor with its partial placements reduced (replicated there)."""
+    if isinstance(t, DTensor) and any(p.is_partial() for p in t.placements):
+        from torch.distributed.tensor import Replicate
+
+        return t.redistribute(t.device_mesh, [Replicate() if p.is_partial() else p for p in t.placements])
+    return t
+
+
+def _leaf_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _leaf_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def _count_and_masters(state: dict, params: dict):
@@ -75,7 +108,7 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8
         c2 = 1.0 - b2 ** count.to(torch.float32)
         mu, nu, master = {}, {}, {}
         for n, g in grads.items():
-            g = g.to(torch.float32)
+            g = _like(g, state["mu"][n]).to(torch.float32)
             mu[n] = b1 * state["mu"][n] + (1 - b1) * g
             nu[n] = b2 * state["nu"][n] + (1 - b2) * g * g
             step = (mu[n] / c1) / (torch.sqrt(nu[n] / c2) + eps)
@@ -85,7 +118,13 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8
             new_state["master"] = master
         return _write(params, master), new_state
 
-    return Optimizer(init, update)
+    def state_specs(param_specs):
+        specs = {"mu": param_specs, "nu": param_specs, "count": ()}
+        if master_fp32:
+            specs["master"] = param_specs
+        return specs
+
+    return Optimizer(init, update, state_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -102,6 +141,11 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30, clip_thr
     def init(params: dict) -> dict:
         def mk(p):
             z = dict(dtype=torch.float32, device=p.device)
+            if isinstance(p, DTensor):  # the statistics placed as the parameter's means
+                zero = torch.zeros_like(p, dtype=torch.float32)
+                if _factored(p.shape):
+                    return {"vr": _settled(torch.mean(zero, dim=-1)), "vc": _settled(torch.mean(zero, dim=-2))}
+                return {"v": zero}
             if _factored(p.shape):
                 return {"vr": torch.zeros(p.shape[:-1], **z),                       # row stats
                         "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **z)}        # col stats
@@ -121,11 +165,11 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30, clip_thr
         new_v, master = {}, {}
         for n, g in grads.items():
             v = state["v"][n]
-            g = g.to(torch.float32)
+            g = _like(g, masters[n]).to(torch.float32)
             g2 = g * g + eps
             if "vr" in v:
-                vr = beta * v["vr"] + (1 - beta) * torch.mean(g2, dim=-1)
-                vc = beta * v["vc"] + (1 - beta) * torch.mean(g2, dim=-2)
+                vr = _like(beta * v["vr"] + (1 - beta) * torch.mean(g2, dim=-1), v["vr"])
+                vc = _like(beta * v["vc"] + (1 - beta) * torch.mean(g2, dim=-2), v["vc"])
                 denom = torch.sqrt(vr[..., None] * vc[..., None, :] / torch.clamp(
                     torch.mean(vr, dim=-1, keepdim=True)[..., None], min=eps))
                 new_v[n] = {"vr": vr, "vc": vc}
@@ -137,13 +181,26 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30, clip_thr
             # RMS update clipping
             rms = torch.sqrt(torch.mean(step * step) + eps)
             step = step / torch.clamp(rms / clip_threshold, min=1.0)
-            master[n] = masters[n] - lr * (step + weight_decay * masters[n])
+            master[n] = _like(masters[n] - lr * (step + weight_decay * masters[n]), masters[n])
         new_state = {"v": new_v, "count": count}
         if master_fp32:
             new_state["master"] = master
         return _write(params, master), new_state
 
-    return Optimizer(init, update)
+    def state_specs(param_specs):
+        def mk(spec):
+            # vr drops the last dim's entry, vc the second-to-last's
+            parts = tuple(spec or ())
+            if len(parts) >= 2:
+                return {"vr": parts[:-1], "vc": parts[:-2] + parts[-1:]}
+            return {"v": parts}
+
+        specs = {"v": _leaf_map(mk, param_specs), "count": ()}
+        if master_fp32:
+            specs["master"] = param_specs
+        return specs
+
+    return Optimizer(init, update, state_specs)
 
 
 def sgd(lr: float = 0.1, momentum: float = 0.0) -> Optimizer:
@@ -155,10 +212,15 @@ def sgd(lr: float = 0.1, momentum: float = 0.0) -> Optimizer:
     @torch.no_grad()
     def update(grads: dict, state: dict, params: dict):
         if momentum:
-            mu = {n: momentum * state["mu"][n] + g.to(torch.float32) for n, g in grads.items()}
-            _write(params, {n: p.to(torch.float32) - lr * mu[n] for n, p in params.items()})
+            mu = {n: momentum * state["mu"][n] + _like(g, state["mu"][n]).to(torch.float32)
+                  for n, g in grads.items()}
+            _write(params, {n: _like(p.to(torch.float32), mu[n]) - lr * mu[n] for n, p in params.items()})
             return params, {"mu": mu}
-        _write(params, {n: p.to(torch.float32) - lr * grads[n].to(torch.float32) for n, p in params.items()})
+        _write(params, {n: p.to(torch.float32) - lr * _like(grads[n], p).to(torch.float32)
+                        for n, p in params.items()})
         return params, state
 
-    return Optimizer(init, update)
+    def state_specs(param_specs):
+        return {"mu": param_specs} if momentum else {}
+
+    return Optimizer(init, update, state_specs)

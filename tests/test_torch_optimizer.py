@@ -93,7 +93,9 @@ def test_steps_match_reference(opt, dtype, master):
     init = _draw(0)
     ref_params = jax.tree.map(lambda x: jnp.asarray(x, dtype), init)
     names = list(_names(init))
-    params = {n: torch.from_numpy(interop.by_name(init, n)).to(getattr(torch, dtype)) for n in names}
+    # copies: ``jnp.asarray`` may alias the numpy buffers on the CPU, and the
+    # port's in-place update must not write under the reference's pending step
+    params = {n: torch.from_numpy(interop.by_name(init, n)).to(getattr(torch, dtype), copy=True) for n in names}
     r, p = make_ref(master), make_port(master)
     ref_state, state = r.init(ref_params), p.init(params)
     _assert_state(state, jax.tree.map(np.asarray, ref_state), names, "init")
