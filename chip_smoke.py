@@ -212,6 +212,10 @@ Training (TinyLlama-1.1B, random bf16 weights from the seed):
      written), a drift hook every 2 steps (ProHD on kernel 1 between the
      embedding table now and at the start, once held to the exact kernel-1
      HD); loss, grad norm, wall time, tokens/s and peak memory per step;
+     before fit, one microbatch's loss and gradients with the wide
+     contractions saving their bf16 operands and with autograd through the
+     upcast (the fp32 copies saved), bitwise equal, each side's peak
+     memory, and OLMoE's MoE contractions at one layer's shapes the same way;
      2 × 22 × 2 kernel-4 launches per step, all on the bf16 route; then
      ``python -m repro_torch.launch.train --arch tinyllama-1.1b --steps 4``
      as a subprocess (the fp32 smoke config, route "ffma"), exit code 0.
@@ -255,7 +259,8 @@ Sharding, launch and analysis (the reference's multi-pod dry run, on DTensor):
      device beside model_flops, wire bytes by op, the traced peak beside
      the analytic peak and the card's memory, the bottleneck term) and the
      sweep's seconds, within 240 s; 80 records, 70 ok and 10 skipped with
-     the configs' long_500k reason, none in error;
+     the configs' long_500k reason, none in error; every ok cell's traced
+     peak within the card's memory (Grok-1 train_4k included);
   19b. TinyLlama-1.1B at full width and depth on a one-rank NCCL (1, 1)
      ("data", "model") mesh, its cells from launch.specs.build_cell and its
      parameters DTensors placed by lm_param_specs, phase 14's weights; each
@@ -264,16 +269,31 @@ Sharding, launch and analysis (the reference's multi-pod dry run, on DTensor):
      batch 32 over a 32,768-slot cache, one train_4k step at 4 × 4,096 in
      2 microbatches (88 launches, all "wgmma"), each bitwise the unsharded
      path's; the real peak of the sharded prefill beside the dry run's
-     prediction for the same cell and mesh; the train state saved in the
-     phase's temporary directory and restored with the ZeRO-1 specs,
-     bitwise; the group destroyed on success and on failure.
+     prediction for the same cell and mesh; the group destroyed on success
+     and on failure;
+  19c. train.loop.fit on TinyLlama-1.1B at full width with its depth cut
+     to SHARDED_FIT_LAYERS, on a one-rank NCCL (1, 1) mesh with 19b's
+     placements, phase 16's seed, data, microbatches, optimizer and
+     schedule (4 steps, an AsyncCheckpointer every 2 steps in the phase's
+     temporary directory, a failure at step 3, a drift hook every 2
+     steps: ProHD through the front door on the full hidden states of a
+     2 × 2,048 probe batch, kernel 1); first on plain parameters
+     (uncounted, no checkpoint, no failure), then on DTensors: every
+     step's loss and gradient norm, the drift values and the final
+     parameters bitwise the plain run's, the restored leaves DTensors with
+     the live placements, every kernel-4 launch "wgmma", kernel 1
+     launched in the drift hook; then the last checkpoint restored with
+     the ZeRO-1 specs, bitwise (19b's check before, moved here because a
+     call's 45 GiB of disk writes cannot hold a full-size train state
+     beside phase 16's two).
 
 Each main path (phases 4-6: set_distance; 6b, 6c and 6d, each its own;
 phase 7b's two-sweep call; phase 8: search; phases 10 and 10b:
 search_batch; 10c: shards=1; phase 11: the served paths; phases 14 and
 14b: each prefill_step and each decode loop; phase 16: the fit call;
 phases 17, 18 and the NCCL forms: each, with no launch allowed; phase
-19b: the sharded prefill, decode and train step)
+19b: the sharded prefill, decode and train step; phase 19c: the sharded
+fit call)
 runs with the kernels' launch counters set to 0 just before it and read
 just after; launches made only to compare a kernel with its plain version
 are taken back out.
@@ -482,6 +502,11 @@ DRYRUN_TIMEOUT_S = 700
 DRYRUN_BUDGET_S = 240  # the sweep's budget; over it, the two-pod mesh would be cut to a few cells
 SHARDED_PREFILL = (8, 4_096)
 SHARDED_DECODE_STEPS = 4
+# 19c: fit on DTensors, TinyLlama at full width with its 22 layers cut to 4,
+# phase 16's schedule: two 4.3 GB checkpoints (a full-depth pair would be 31
+# GB more than a call's disk writes hold) and ~1.5 s a step.
+SHARDED_FIT_LAYERS = 4
+SHARDED_FIT_PROBE = (2, 2_048)
 # (B, S, H, KV, hd, dtype, kv chunk): kernel 4 under autograd; S 1,000 is
 # ragged against the kernel's 128-row and 64/128-key tiles.
 ATTN_GRAD_CASES = tuple(
@@ -3359,6 +3384,93 @@ def grads_vs_float64(model, cfg, tokens) -> dict:
 
 
 @contextlib.contextmanager
+def upcast_saved():
+    """Inside the block ``layers.matmul_wide`` / ``einsum_wide`` run as they
+    did before they saved their narrow operands: autograd through the
+    upcast, which keeps the fp32 copies for the backward."""
+    from repro_torch.models import layers as L
+
+    real = L._contract_wide
+
+    def plain(eq, a, b):
+        wide = L.wide_dtype(a.dtype)
+        return L._contract(eq, a.to(wide), b.to(wide))
+
+    L._contract_wide = plain
+    try:
+        yield
+    finally:
+        L._contract_wide = real
+
+
+# OLMoE-1B-7B's MoE contractions in one layer's training forward at 1 × 4,096
+# tokens: groups of 2,048 (G 2), 64 experts of capacity 320, d 2,048, f 1,024.
+MOE_WIDE_CASES = (
+    ("gsec,gsd->gecd", (2, 2_048, 64, 320), (2, 2_048, 2_048)),
+    ("gecd,edf->gecf", (2, 64, 320, 2_048), (64, 2_048, 1_024)),
+    ("gsec,gecd->gsd", (2, 2_048, 64, 320), (2, 64, 320, 2_048)),
+    (None, (2, 2_048, 2_048), (2_048, 64)),  # the router, its weight fp32
+)
+
+
+def wide_saved_check(model, cfg, batch, seed: int) -> dict:
+    """The narrow-saving wide contractions against autograd through the
+    upcast (:func:`upcast_saved`), on the card, uncounted: one microbatch's
+    ``lm_loss`` and every gradient of the full model, and OLMoE's MoE
+    contractions at one layer's shapes (``MOE_WIDE_CASES``, outputs and
+    both operands' gradients), all bitwise equal; each side's peak memory
+    over the model and its batch."""
+    import torch
+
+    from repro_torch.data.pointclouds import make_generator
+    from repro_torch.device import lm_precision
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    named = dict(model.named_parameters())
+
+    def step():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with lm_precision():
+            loss, _ = T.lm_loss(model, batch, cfg)
+            grads = torch.autograd.grad(loss, list(named.values()))
+        torch.cuda.synchronize()
+        return loss.detach(), grads, (torch.cuda.max_memory_allocated() - base) / 1e9, time.perf_counter() - t0
+
+    out = {"tokens": list(batch["tokens"][:, :-1].shape)}
+    with uncounted():
+        loss, grads, peak, wall = step()
+        with upcast_saved():
+            loss0, grads0, peak0, wall0 = step()
+        same = [bool(torch.equal(g, g0)) for g, g0 in zip(grads, grads0)]
+        out.update(loss_bitwise=bool(torch.equal(loss, loss0)), grads_bitwise=f"{sum(same)}/{len(same)}",
+                   peak_gb=peak, peak_gb_upcast_saved=peak0, wall_s=wall, wall_s_upcast_saved=wall0)
+        del grads, grads0
+        torch.cuda.empty_cache()
+        gen = make_generator(seed + 25, DEVICE)
+        moe = []
+        for eq, sa, sb in MOE_WIDE_CASES:
+            a = torch.randn(sa, generator=gen, device=DEVICE).to(torch.bfloat16)
+            b = torch.randn(sb, generator=gen, device=DEVICE).to(torch.float32 if eq is None else torch.bfloat16)
+            runs = []
+            for ctx in (contextlib.nullcontext, upcast_saved):
+                x, w = a.clone().requires_grad_(), b.clone().requires_grad_()
+                with ctx(), lm_precision():
+                    y = L.matmul_wide(x, w) if eq is None else L.einsum_wide(eq, x, w)
+                    g = torch.randn(y.shape, generator=make_generator(seed + 26, DEVICE), device=DEVICE)
+                    runs.append((y.detach(), *torch.autograd.grad(y, (x, w), g)))
+            moe.append({"eq": eq or "router matmul", "bitwise": all(torch.equal(u, v) for u, v in zip(*runs))})
+            del runs
+        torch.cuda.empty_cache()
+    out["moe"] = moe
+    assert out["loss_bitwise"] and all(same) and all(m["bitwise"] for m in moe), out
+    return out
+
+
+@contextlib.contextmanager
 def checkpoints_observed(keep_step: int):
     """Inside the block the background writer's ``checkpoint.save`` keeps
     the host snapshot it writes for ``keep_step`` and times every write,
@@ -3446,6 +3558,11 @@ def phase_train(seed: int, env: dict) -> dict:
     emit({"phase": "train_grads_float64", **out["float64"]})
 
     b, s = TRAIN_SHAPE
+    # One microbatch of step 0's batch, saving bf16 operands and fp32 copies.
+    first = synth.lm_batch(make_generator(seed + 1000, DEVICE), cfg, b, s)["tokens"][: b // TRAIN_MICROBATCHES]
+    out["wide_saved"] = wide_saved_check(model, cfg, {"tokens": first}, seed)
+    emit({"phase": "train_wide_saved", **out["wide_saved"]})
+
     steps_run = []
     state = {"embed0": model.embed.detach().float(), "drift": []}  # fp32 holds bf16 exactly
     metric = make_set_distance_metric(variant="hausdorff", method="prohd")
@@ -3517,7 +3634,7 @@ def phase_train(seed: int, env: dict) -> dict:
                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
     del model, state
     torch.cuda.empty_cache()
-    emit({"phase": "train", **{k: v for k, v in out.items() if k != "float64"}})
+    emit({"phase": "train", **{k: v for k, v in out.items() if k not in ("float64", "wide_saved")}})
     return out
 
 
@@ -3983,7 +4100,8 @@ def start_dryrun_sweep():
 def finish_dryrun_sweep(handle) -> dict:
     """Wait for phase 19a, print one line per record, and check the sweep:
     80 records, 70 ``ok`` and 10 ``skipped`` with the configs' own
-    long_500k reason, none ``error``, within ``DRYRUN_BUDGET_S``."""
+    long_500k reason, none ``error``, within ``DRYRUN_BUDGET_S``, and every
+    ``ok`` cell's traced peak within the card's memory."""
     import shutil
 
     from repro_torch.configs.base import arch_ids, load_arch
@@ -4020,11 +4138,21 @@ def finish_dryrun_sweep(handle) -> dict:
         else:
             line["error"] = r.get("error")
         emit(line)
+    ok = [r for r in recs if r["status"] == "ok"]
+    largest = max(ok, key=lambda r: r["memory"]["peak_bytes"] / r["device_bytes"]) if ok else None
+    over = [{"arch": r["arch"], "shape": r["shape"], "mesh": r["mesh"], "peak_bytes": r["memory"]["peak_bytes"],
+             "device_bytes": r["device_bytes"], "peak_by_kind": r["memory"]["peak_by_kind"]}
+            for r in ok if r["memory"]["peak_bytes"] > r["device_bytes"]]
     out = {"phase": "dryrun_sweep", "records": len(recs), "status": status, "seconds": seconds,
-           "jobs": DRYRUN_JOBS, "exit": proc.returncode}
+           "jobs": DRYRUN_JOBS, "exit": proc.returncode, "over_device_memory": over,
+           "largest_peak": largest and {"arch": largest["arch"], "shape": largest["shape"], "mesh": largest["mesh"],
+                                        "peak_bytes": largest["memory"]["peak_bytes"],
+                                        "device_bytes": largest["device_bytes"],
+                                        "peak_by_kind": largest["memory"]["peak_by_kind"]}}
     emit(out)
     assert proc.returncode == 0 and len(recs) == 80 and status == {"ok": 70, "skipped": 10}, (out, log[-3000:])
     assert seconds <= DRYRUN_BUDGET_S, out
+    assert not over, over
     return out
 
 
@@ -4038,9 +4166,7 @@ def phase_sharded_lm(seed: int, env: dict) -> dict:
     batch 32 over a 32,768-slot cache, one train_4k step at 4 × 4,096 in 2
     microbatches (the cell's optimizer, AdamW; 88 launches, all "wgmma");
     the real peak of the sharded prefill beside the dry run's ``MemTracker``
-    prediction for the same cell and mesh; then the train state saved in the
-    phase's temporary directory and restored with the ZeRO-1 specs on the
-    same mesh, bitwise."""
+    prediction for the same cell and mesh."""
     import dataclasses
     import datetime
     import shutil
@@ -4060,7 +4186,6 @@ def phase_sharded_lm(seed: int, env: dict) -> dict:
     from repro_torch.launch.mesh import fake_process_group, make_test_mesh
     from repro_torch.models import transformer as T
     from repro_torch.sharding import axes
-    from repro_torch.train import checkpoint as ck
 
     spec = load_arch(LM_ARCH)
     cfg = spec.config
@@ -4182,33 +4307,7 @@ def phase_sharded_lm(seed: int, env: dict) -> dict:
         assert out["train"]["loss_bitwise"] and out["train"]["grad_norm_bitwise"] and params_equal, out["train"]
         n_want = 2 * cfg.n_layers * TRAIN_MICROBATCHES
         assert n_train == n_want and train_routes == {"wgmma": n_want, "ffma": 0}, out["train"]
-        del ref_params
-
-        # save the train state, restore it with the ZeRO-1 specs on the same mesh
-        zero1 = T.zero1_opt_specs(tr.in_specs[0], T.nested_shapes(cfg), mesh)
-        z_specs = {"params": {n: axes._spec_at(zero1, n) for n in named},
-                   "opt": {k: ({n: axes._spec_at(v, n) for n in named} if isinstance(v, dict) else v)
-                           for k, v in opt.state_specs(zero1).items()}}
-        tree = {"params": {n: p.detach() for n, p in named.items()}, "opt": state}
-        ck_root = tmp / "ckpt"
-        try:
-            t0 = time.perf_counter()
-            ck.save(ck_root, 1, tree)
-            save_s = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            got, step = ck.restore(ck_root, tree, mesh=mesh, specs=z_specs)
-            restore_s = time.perf_counter() - t0
-        finally:
-            shutil.rmtree(ck_root, ignore_errors=True)
-        flat_got, flat_want, flat_spec = ck._flatten(got), ck._flatten(tree), ck._flatten(z_specs,
-                                                                                         is_leaf=axes._is_spec)
-        same = [torch.equal(flat_got[k].to_local(), flat_want[k].full_tensor()) and
-                tuple(flat_got[k].placements) == axes.placements(flat_spec[k], mesh) for k in flat_want]
-        out["checkpoint"] = {"leaves": len(same), "bitwise": all(same), "step": step, "save_s": save_s,
-                             "restore_s": restore_s, "dir": str(tmp),
-                             "gb": sum(flat_want[k].numel() * flat_want[k].element_size() for k in flat_want) / 1e9}
-        assert out["checkpoint"]["bitwise"] and step == 1, out["checkpoint"]
-        del got, tree, state
+        del ref_params, state
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4217,6 +4316,188 @@ def phase_sharded_lm(seed: int, env: dict) -> dict:
     out["launches"] = n_prefill + n_decode + n_train
     out["route_launches"] = {r: out["prefill"]["route_launches"][r] + out["train"]["route_launches"][r]
                              for r in out["train"]["route_launches"]}
+    emit(out)
+    return out
+
+
+def phase_sharded_fit(seed: int, env: dict) -> dict:
+    """Phase 19c: ``train.loop.fit`` on TinyLlama-1.1B at full width, its
+    depth cut to ``SHARDED_FIT_LAYERS``, bf16, remat, with phase 16's seed,
+    data, microbatches, optimizer and schedule, twice from the same
+    weights: on plain parameters (uncounted; no checkpoint, no failure),
+    then on a one-rank NCCL (1, 1) mesh with the parameters placed as 19b
+    places them (the train cell's ``lm_param_specs`` and rules), an
+    ``AsyncCheckpointer`` in the phase's temporary directory and a failure
+    at step 3 (counted).  Every step's loss and gradient norm, the drift
+    hook's ProHD interval and the final parameters bitwise the plain run's;
+    the one restore gives back DTensors with the live leaves' placements;
+    every kernel-4 launch "wgmma" (2 × L × 2 a step, L a drift forward);
+    kernel 1 launched inside the drift hook.  Then the last checkpoint
+    restored with the ZeRO-1 specs, each leaf bitwise its block of the
+    final state."""
+    import dataclasses
+    import datetime
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs.base import load_arch
+    from repro_torch.data import synth
+    from repro_torch.data.pointclouds import make_generator
+    from repro_torch.kernels.flash_attention import flash as F
+    from repro_torch.kernels.hausdorff import hausdorff as K
+    from repro_torch.launch import specs
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import axes
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train import optimizer
+    from repro_torch.train.loop import TrainConfig, fit, make_set_distance_metric
+
+    spec = load_arch(LM_ARCH)
+    cfg = dataclasses.replace(spec.config, n_layers=SHARDED_FIT_LAYERS)
+    spec = dataclasses.replace(spec, config=cfg)
+    b, s = TRAIN_SHAPE
+    train_cell = dataclasses.replace(next(c for c in spec.shapes if c.name == "train_4k"),
+                                     dims={"seq_len": s, "global_batch": b})
+    model = T.init_lm_params(make_generator(seed + 17, DEVICE), cfg)  # phase 16's seed
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    probe = synth.lm_batch(make_generator(seed + 999, DEVICE), cfg, *SHARDED_FIT_PROBE)["tokens"][:, :-1]
+    opt = optimizer.adamw(lr=1e-3, weight_decay=0.01)  # phase 16's
+    out = {"phase": "sharded_fit", "arch": LM_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params_billions": sum(p.numel() for p in start.values()) / 1e9, "mesh": [1, 1], "shape": [b, s],
+           "microbatches": TRAIN_MICROBATCHES, "steps": TRAIN_STEPS, "fail_at": TRAIN_FAIL_AT}
+
+    def data_iter(start_step):
+        i = start_step
+        while True:
+            yield synth.lm_batch(make_generator(seed + 1000 + i, DEVICE), cfg, b, s)  # phase 16's data
+            i += 1
+
+    def run(ckpt_dir=None, fail_at=None):
+        logs, drifts, ref = [], [], {}
+        metric = make_set_distance_metric(variant="hausdorff", method="prohd")
+
+        def drift_hook(params, info):
+            hidden, _ = T.lm_forward(params, probe, cfg)
+            flat = (hidden.full_tensor() if isinstance(hidden, DTensor) else hidden).reshape(-1, cfg.d_model).float()
+            if "h0" not in ref:
+                ref["h0"] = flat
+                return
+            k1 = K.fused_minscan.launches
+            res = metric(ref["h0"], flat)
+            drifts.append({"step": info["step"], "value": float(res.value), "lower": float(res.lower),
+                           "upper": float(res.upper), "kernel1_launches": K.fused_minscan.launches - k1})
+
+        tc = TrainConfig(steps=TRAIN_STEPS, microbatches=TRAIN_MICROBATCHES, log_every=1,
+                         ckpt_every=TRAIN_CKPT_EVERY, ckpt_dir=ckpt_dir, drift_every=TRAIN_DRIFT_EVERY)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, opt_state, _ = fit(params=model, optimizer=opt, loss_fn=lambda p, batch: T.lm_loss(p, batch, cfg),
+                              data_iter_fn=data_iter, cfg=tc, drift_hook=drift_hook, _fail_at=fail_at,
+                              log_fn=lambda step, rec: logs.append((step, rec["loss"], rec["grad_norm"], rec["dt"])))
+        torch.cuda.synchronize()
+        return logs, drifts, opt_state, time.perf_counter() - t0
+
+    with uncounted():
+        plain_logs, plain_drifts, state, plain_wall = run()
+        del state
+        plain_final = {n: p.detach().clone() for n, p in model.named_parameters()}
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(start[n])
+        del start
+        torch.cuda.empty_cache()
+
+    seen = {"writes": [], "restores": []}
+    real_save, real_restore = ck.save, ck.restore
+
+    def save(root, step, tree, **kw):
+        t0 = time.perf_counter()
+        got = real_save(root, step, tree, **kw)
+        seen["writes"].append((step, time.perf_counter() - t0))
+        return got
+
+    def restore(root, tree_like, *args, **kw):
+        t0 = time.perf_counter()
+        tree, step = real_restore(root, tree_like, *args, **kw)
+        got, like = ck._flatten(tree), ck._flatten(tree_like)
+        seen["restores"].append({
+            "step": step, "s": time.perf_counter() - t0, "leaves": len(like),
+            "dtensor_leaves": sum(isinstance(v, DTensor) for v in like.values()),
+            "placed_alike": all(not isinstance(v, DTensor) or (isinstance(got[k], DTensor)
+                                and tuple(got[k].placements) == tuple(v.placements)) for k, v in like.items())})
+        return tree, step
+
+    tmp = Path(tempfile.mkdtemp())
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.FileStore(str(tmp / "store"), 1), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=600),
+                            device_id=torch.device(DEVICE, 0) if DEVICE == "cuda" else None)
+    try:
+        mesh = init_device_mesh(DEVICE, (1, 1), mesh_dim_names=("data", "model"))
+        tr = specs.build_cell(spec, train_cell, mesh, device=DEVICE, microbatches=TRAIN_MICROBATCHES)
+        axes.distribute_module(model, tr.in_specs[0], mesh)
+        ck.save, ck.restore = save, restore
+        try:
+            zero_counts()
+            with axes.use_rules(tr.rules):
+                logs, drifts, state, wall = run(ckpt_dir=str(tmp / "ckpt"), fail_at=TRAIN_FAIL_AT)
+            n, routes = counts(), route_counts()
+        finally:
+            ck.save, ck.restore = real_save, real_restore
+        named = dict(model.named_parameters())
+        params_same = [torch.equal(p.detach().full_tensor(), plain_final[k]) for k, p in named.items()]
+        del plain_final
+        # forward and remat recompute per layer and microbatch in the 4 steps run, and 2 drift forwards
+        n_want = TRAIN_STEPS * 2 * cfg.n_layers * TRAIN_MICROBATCHES + 2 * cfg.n_layers
+        out.update({
+            "plain_logs": plain_logs, "logs": logs, "drift": drifts, "plain_wall_s": plain_wall, "fit_wall_s": wall,
+            "losses_bitwise": [x[1] for x in logs] == [x[1] for x in plain_logs],
+            "grad_norms_bitwise": [x[2] for x in logs] == [x[2] for x in plain_logs],
+            "drift_bitwise": [{k: v for k, v in d.items() if k != "kernel1_launches"} for d in drifts]
+            == [{k: v for k, v in d.items() if k != "kernel1_launches"} for d in plain_drifts],
+            "params_bitwise": f"{sum(params_same)}/{len(params_same)}",
+            "checkpoint_writes": seen["writes"], "restores": seen["restores"],
+            "launches": n, "route_launches": routes, "kernel4_expected": n_want})
+        assert [x[0] for x in logs] == list(range(TRAIN_STEPS)), out
+        assert out["losses_bitwise"] and out["grad_norms_bitwise"] and out["drift_bitwise"] and all(params_same), out
+        assert len(seen["restores"]) == 1 and seen["restores"][0]["placed_alike"], seen["restores"]
+        assert seen["restores"][0]["step"] == (TRAIN_FAIL_AT - 1) // TRAIN_CKPT_EVERY * TRAIN_CKPT_EVERY, out
+        assert seen["restores"][0]["dtensor_leaves"] >= 4 * len(named), seen["restores"]
+        assert [w[0] for w in seen["writes"]] == [TRAIN_CKPT_EVERY, TRAIN_STEPS - 1], seen["writes"]
+        assert n["flash_fwd"] == n_want and routes == {**dict.fromkeys(F.ROUTES, 0), "wgmma": n_want}, out
+        assert [d["step"] for d in drifts] == [TRAIN_DRIFT_EVERY] and drifts[0]["kernel1_launches"] > 0, drifts
+        assert n["fused_minscan"] == drifts[0]["kernel1_launches"], out
+        assert n["batched_minscan"] == n["multiquery_minscan"] == 0, n
+
+        # the last checkpoint restored with the ZeRO-1 specs on the same mesh (19b's check before)
+        zero1 = T.zero1_opt_specs(tr.in_specs[0], T.nested_shapes(cfg), mesh)
+        z_specs = {"params": {k: axes._spec_at(zero1, k) for k in named},
+                   "opt": {k: ({m: axes._spec_at(v, m) for m in named} if isinstance(v, dict) else v)
+                           for k, v in opt.state_specs(zero1).items()}}
+        tree = {"params": {k: p.detach() for k, p in named.items()}, "opt": state}
+        t0 = time.perf_counter()
+        got, step = ck.restore(tmp / "ckpt", tree, mesh=mesh, specs=z_specs)
+        restore_s = time.perf_counter() - t0
+        flat_got, flat_want = ck._flatten(got), ck._flatten(tree)
+        flat_spec = ck._flatten(z_specs, is_leaf=axes._is_spec)
+        same = [torch.equal(flat_got[k].to_local(), flat_want[k].full_tensor() if isinstance(flat_want[k], DTensor)
+                            else flat_want[k]) and tuple(flat_got[k].placements) == axes.placements(flat_spec[k], mesh)
+                for k in flat_want]
+        ckpt_bytes = sum(f.stat().st_size for f in (tmp / "ckpt" / f"ckpt_{step}").glob("*"))
+        out["zero1_restore"] = {"step": step, "leaves": len(same), "bitwise": all(same), "restore_s": restore_s,
+                                "checkpoint_gb": ckpt_bytes / 1e9}
+        assert all(same) and step == TRAIN_STEPS - 1, out["zero1_restore"]
+        del got, tree, state
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    del model
+    torch.cuda.empty_cache()
     emit(out)
     return out
 
@@ -4415,6 +4696,12 @@ def main() -> int:
         sweep["proc"].wait()
         raise
     finish_dryrun_sweep(sweep)
+    # Phase 19c, main path 9: fit on DTensor parameters over one NCCL rank
+    # (its plain-tensor twin uncounted, inside the phase).
+    t0 = time.perf_counter()
+    sharded_fit = phase_sharded_fit(args.seed, env)
+    emit({"phase": "main_path", "path": "sharded_fit", "launches": sharded_fit["launches"],
+          "route_launches": sharded_fit["route_launches"], "wall_s": time.perf_counter() - t0})
 
     def total(name):
         return sum(c[name] for c in (search_launches, batch_launches, shard_launches, serve_launches))
@@ -4423,22 +4710,26 @@ def main() -> int:
         kernel_entry("fused_minscan", "cuda", KERNEL_SOURCE, TPU_KERNEL,
                      pair_launches + total("fused_minscan") + dist_launches["fused_minscan"]
                      + sum(c["fused_minscan"] for c in side_launches.values())
-                     + baselines["twosweep"]["launches"] + train["launches"]["fused_minscan"],
+                     + baselines["twosweep"]["launches"] + train["launches"]["fused_minscan"]
+                     + sharded_fit["launches"]["fused_minscan"],
                      max(max_err, exact_err), rows),
         kernel_entry("batched_minscan", "cuda", KERNEL2_SOURCE, TPU_KERNEL2,
                      total("batched_minscan"), max_err2, rows2, held2),
         kernel_entry("multiquery_minscan", "cuda", KERNEL3_SOURCE, TPU_KERNEL3,
                      total("multiquery_minscan"), max_err3, rows3, held3),
         {**kernel_entry("flash_fwd", "cuda", KERNEL4_SOURCE, TPU_KERNEL4,
-                        lm["launches"] + moe["launches"] + train["launches"]["flash_fwd"] + sharded["launches"],
+                        lm["launches"] + moe["launches"] + train["launches"]["flash_fwd"] + sharded["launches"]
+                        + sharded_fit["launches"]["flash_fwd"],
                         max([max_err4] + [r["forward"]["max_abs_err"] for r in attn_grad["cases"]]),
                         rows4, (lm["held"], moe["held"])),
          "routes": {"wgmma": {"dtype": "bfloat16", "source": KERNEL4_SOURCE, "replaces": TPU_KERNEL4,
                               "launches": lm["route_launches"]["wgmma"] + moe["route_launches"]["wgmma"]
-                              + train["route_launches"]["wgmma"] + sharded["route_launches"]["wgmma"]},
+                              + train["route_launches"]["wgmma"] + sharded["route_launches"]["wgmma"]
+                              + sharded_fit["route_launches"]["wgmma"]},
                     "ffma": {"dtype": "float32", "source": KERNEL4_FP32_SOURCE, "replaces": TPU_KERNEL4,
                              "launches": lm["route_launches"]["ffma"] + moe["route_launches"]["ffma"]
-                             + train["route_launches"]["ffma"] + sharded["route_launches"]["ffma"]}}},
+                             + train["route_launches"]["ffma"] + sharded["route_launches"]["ffma"]
+                             + sharded_fit["route_launches"]["ffma"]}}},
     ]})
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
     print(smi("name,power.limit"), flush=True)

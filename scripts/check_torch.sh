@@ -47,6 +47,7 @@ if [[ -z "${SKIP_EXAMPLES:-}" ]]; then
   python examples/torch_retrieval.py --device cpu --sets 1000
   python examples/torch_serve_prohd.py --device cpu
   python examples/torch_distributed.py --ranks 4 --backend gloo --device cpu --n 8192 --d 16
+  python examples/torch_train_lm.py --device cpu --steps 12 --ckpt-every 4 --drift-every 4
   python -m repro_torch.launch.train --arch tinyllama-1.1b --steps 8 --device cpu
   python -m repro_torch.launch.train --arch gat-cora --steps 4 --device cpu
   python -m repro_torch.launch.train --arch fm --steps 4 --device cpu

@@ -1,15 +1,20 @@
-"""Set-distance reductions of the fused min-d² scan's outputs.
+"""Set-distance variants: reductions of the fused min-d² scan's outputs.
 
 Counterpart of ``repro/core/variants.py``: partial (quantile) Hausdorff
 (Huttenlocher et al. 1993) and chamfer distance reduce the same two min
-vectors differently.  The front door applies them to any backend's scan.
+vectors differently.  The front door applies the reductions to any
+backend's scan; :func:`partial_hausdorff` and :func:`chamfer` bind them to
+``kernels.hausdorff.ops.fused_min_sqdists`` (kernel 1 on CUDA tensors, the
+plain fused scan on the CPU).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["quantile_reduce", "mean_min_dist"]
+from repro_torch.kernels.hausdorff import ops as hd_ops
+
+__all__ = ["quantile_reduce", "mean_min_dist", "partial_hausdorff", "chamfer"]
 
 
 def quantile_reduce(mins, vx, n: int, quantile: float) -> torch.Tensor:
@@ -40,3 +45,24 @@ def mean_min_dist(mins, vx) -> torch.Tensor:
     if vx is not None:
         return torch.where(vx, d, 0.0).sum() / torch.clamp(vx.sum(), min=1)
     return d.mean()
+
+
+def partial_hausdorff(a, b, *, quantile: float = 0.95, valid_a=None, valid_b=None) -> torch.Tensor:
+    """Directed-partial HD both ways: K-th ranked min-distance, K = ⌈q·n⌉.
+
+    quantile=1.0 recovers the standard Hausdorff distance.  Robust to
+    (1-q)·n outliers per cloud.  Both directions' min vectors come out of
+    one fused scan.
+    """
+    min_a, min_b = hd_ops.fused_min_sqdists(a, b, valid_a=valid_a, valid_b=valid_b)
+    return torch.maximum(
+        quantile_reduce(min_a, valid_a, a.shape[0], quantile),
+        quantile_reduce(min_b, valid_b, b.shape[0], quantile),
+    )
+
+
+def chamfer(a, b, *, valid_a=None, valid_b=None) -> torch.Tensor:
+    """Symmetric chamfer: mean_a min_b d(a,b) + mean_b min_a d(b,a), both
+    directions from one fused scan."""
+    min_a, min_b = hd_ops.fused_min_sqdists(a, b, valid_a=valid_a, valid_b=valid_b)
+    return mean_min_dist(min_a, valid_a) + mean_min_dist(min_b, valid_b)

@@ -57,3 +57,14 @@ class HDResult:
     def certified(self) -> bool:
         """True when the result carries a two-sided certified interval."""
         return self.lower is not None and self.upper is not None
+
+    @property
+    def degraded(self) -> bool:
+        """True when a deadline/fault weakened the certificate (the
+        interval still contains the truth — see the reliability contract)."""
+        return self.meta.degraded
+
+    @property
+    def stage_reached(self) -> str:
+        """Deepest pipeline stage that contributed to this result."""
+        return self.meta.stage_reached

@@ -376,11 +376,10 @@ def _search_batch_impl(
             sums = store.summaries()
             # Corpus axis split across the devices; per-(query, set) bound
             # math is row-local, so the bits are the unsharded ones.
-            lb_t, ub_t, scale_t = _sharded.stage0_bounds(shard_ctx, qsums, sums, directed=directed)
+            lb, ub, scale = _sharded.stage0_multiquery(shard_ctx, qsums, sums, directed=directed)
             if shards is not None:
                 _sp0.set(shards=shard_ctx.n_shards)
-            scale = scale_t.double().cpu().numpy()
-            lb, ub = certified_margins(lb_t.double().cpu().numpy(), ub_t.double().cpu().numpy(), scale, store.dim)
+            lb, ub = certified_margins(lb, ub, scale, store.dim)
             if has_dead:
                 # Stale summary rows at tombstoned ids: pin to +inf.
                 lb[:, dead] = np.inf

@@ -45,6 +45,7 @@ __all__ = [
     "visible_devices",
     "make_shard_context",
     "stage0_bounds",
+    "stage0_multiquery",
     "stage1_certs",
     "merge_topk",
 ]
@@ -103,6 +104,14 @@ def stage0_bounds(ctx: ShardContext, qsum: SetSummary, ssums: SetSummary, *, dir
         lb, ub = _cascade.interval_bounds(qs, ss, directed=directed)
         parts.append((lb, ub, _cascade.bound_scale(qs, ss)))
     return tuple(torch.cat([p[i].to(home) for p in parts], dim=-1) for i in range(3))
+
+
+def stage0_multiquery(ctx: ShardContext, qsums: SetSummary, ssums: SetSummary, *, directed: bool):
+    """Sharded batch stage 0: the raw certified ``(lb, ub, scale)``, each
+    (Q, N) float64 numpy, from :func:`stage0_bounds` on ``qsums`` stacked
+    with the broadcast axis ((Q, 1, ...) per field) as ``search_batch``
+    stacks them; the corpus axis is split across ``ctx``'s devices."""
+    return tuple(t.double().cpu().numpy() for t in stage0_bounds(ctx, qsums, ssums, directed=directed))
 
 
 def stage1_certs(ctx: ShardContext, q: torch.Tensor, bucket, rows: np.ndarray, *,

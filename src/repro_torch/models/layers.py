@@ -26,7 +26,11 @@ the inputs are float64, so that one code path also gives the float64
 oracle.  An fp32-output product of bf16 inputs is an fp32 matmul of the
 upcast operands: bf16 products are exact in fp32, so it is the reference's
 bf16 × bf16 → fp32 contraction (TF32 stays off, see
-:func:`repro_torch.device.lm_precision`).
+:func:`repro_torch.device.lm_precision`).  Under autograd such a product
+saves its bf16 operands, as the reference's program keeps no fp32 copy of
+them, and its backward upcasts them again (exactly) and runs autograd's own
+gradient products on them: the gradients are bitwise those of autograd
+through the upcast, and no fp32 operand copy outlives the op.
 
 ``causal_attention`` on a CUDA tensor runs the hand-written flash kernel
 (kernel 4, :func:`repro_torch.kernels.flash_attention.flash.flash_attention`)
@@ -48,6 +52,7 @@ import torch
 import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.kernels.flash_attention import flash as F
 from repro_torch.sharding.axes import block_of, replicated
@@ -65,16 +70,160 @@ def wide_dtype(dtype: torch.dtype) -> torch.dtype:
 
 def matmul_wide(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with a wide (fp32 / float64) output and accumulation: the
-    reference's ``einsum(..., preferred_element_type=f32)``."""
-    wide = wide_dtype(a.dtype)
-    return torch.matmul(a.to(wide), b.to(wide))
+    reference's ``einsum(..., preferred_element_type=f32)``.  Under autograd
+    it saves ``a`` and ``b``, not their upcasts (module docstring)."""
+    return _contract_wide(None, a, b)
 
 
 def einsum_wide(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``einsum(eq, a, b)`` on upcast operands: the reference's
-    ``einsum(eq, a, b, preferred_element_type=f32)``."""
+    ``einsum(eq, a, b, preferred_element_type=f32)``.  Under autograd it
+    saves ``a`` and ``b``, not their upcasts (module docstring)."""
+    return _contract_wide(eq, a, b)
+
+
+def _contract(eq: str | None, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(a, b) if eq is None else torch.einsum(eq, a, b)
+
+
+def _contract_wide(eq: str | None, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     wide = wide_dtype(a.dtype)
-    return torch.einsum(eq, a.to(wide), b.to(wide))
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad) and (a.dtype, b.dtype) != (wide, wide):
+        return _WideContraction.apply(eq, a, b)
+    return _contract(eq, a.to(wide), b.to(wide))
+
+
+# ``torch.matmul`` and ``torch.einsum`` decompose, below autograd, into ops
+# that only move data (views, permutes, copies) around one ``mm`` or
+# ``bmm``.  The backward of the narrow-saving contraction replays that
+# decomposition, as logged once per operand layout, on the re-upcast
+# operands and applies autograd's own formulas for each op: the same
+# products on the same layouts, so the same bits.
+_ATEN = torch.ops.aten
+_PRODUCTS = (_ATEN.mm.default, _ATEN.bmm.default)
+_PLANS: dict = {}
+
+
+class _Slot(NamedTuple):
+    """A tensor argument of a logged op: 0 and 1 are the upcast operands,
+    k + 2 the output of the op logged k-th."""
+    index: int
+
+
+class _Plan(NamedTuple):
+    steps: tuple   # (op, args with _Slot for tensors, kwargs, shape of the op's tensor input)
+    product: int   # the index of the mm / bmm step
+
+
+class _PlanLog(TorchDispatchMode):
+    """Logs the aten ops one contraction runs (:class:`_Plan`)."""
+
+    def __init__(self, *operands):
+        super().__init__()
+        self.slots = {id(t): i for i, t in enumerate(operands)}
+        self.alive = list(operands)  # an id stays unique while its tensor lives
+        self.steps = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if not isinstance(out, torch.Tensor):  # a metadata query (prim.device on fake tensors) moves no data
+            return out
+        tensors = [x for x in args if isinstance(x, torch.Tensor)]
+        if any(id(t) not in self.slots for t in tensors) or len(tensors) != (2 if func in _PRODUCTS else 1):
+            raise NotImplementedError(f"wide contraction: {func} is not a data move around one product")
+        self.steps.append((func, tuple(_Slot(self.slots[id(x)]) if isinstance(x, torch.Tensor) else x
+                                       for x in args), kwargs, tuple(tensors[0].shape)))
+        self.slots[id(out)] = len(self.alive)
+        self.alive.append(out)
+        return out
+
+    def plan(self) -> _Plan:
+        products = [i for i, s in enumerate(self.steps) if s[0] in _PRODUCTS]
+        used = [a.index for s in self.steps for a in s[1] if isinstance(a, _Slot)]
+        if len(products) != 1 or len(used) != len(set(used)) or any(
+                self.steps[i][1][0].index != i + 1 for i in range(products[0] + 1, len(self.steps))):
+            raise NotImplementedError("wide contraction: not one product between chains of data moves")
+        return _Plan(tuple(self.steps), products[0])
+
+
+def _grad_through(step, grad: torch.Tensor) -> torch.Tensor:
+    """The gradient at a data move's input, by autograd's formula for it."""
+    func, args, _, in_shape = step
+    if func in (_ATEN.view.default, _ATEN._unsafe_view.default):
+        return grad.reshape(in_shape)
+    if func is _ATEN.permute.default:
+        inv = [0] * len(args[1])
+        for i, d in enumerate(args[1]):
+            inv[d % len(inv)] = i
+        return grad.permute(inv)
+    if func is _ATEN.unsqueeze.default:
+        return grad.squeeze(args[1])
+    if func is _ATEN.clone.default:
+        return grad
+    raise NotImplementedError(f"wide contraction: no gradient rule for {func}")
+
+
+def _col_major(t: torch.Tensor) -> bool:
+    return t.stride(0) == 1 and t.stride(1) == t.shape[0]
+
+
+def _product_grads(func, left, right, grad, need_left: bool, need_right: bool):
+    """autograd's gradients of ``mm`` / ``bmm``: for ``mm`` a column-major
+    operand gets its gradient computed transposed, as autograd does."""
+    gl = gr = None
+    if func is _ATEN.bmm.default:
+        if need_left:
+            gl = grad.bmm(right.transpose(1, 2))
+        if need_right:
+            gr = left.transpose(1, 2).bmm(grad)
+        return gl, gr
+    if need_left:
+        gl = right.mm(grad.t()).t() if _col_major(left) else grad.mm(right.t())
+    if need_right:
+        gr = grad.t().mm(left).t() if _col_major(right) else left.t().mm(grad)
+    return gl, gr
+
+
+class _WideContraction(torch.autograd.Function):
+    """:func:`_contract` on upcast operands, saving the narrow ones."""
+
+    @staticmethod
+    def forward(ctx, eq, a, b):
+        wide = wide_dtype(a.dtype)
+        aw, bw = a.to(wide), b.to(wide)
+        key = (eq, type(a), a.shape, a.stride(), type(b), b.shape, b.stride(), wide)
+        plan = _PLANS.get(key)
+        if plan is None:
+            with _PlanLog(aw, bw) as log:
+                out = _contract(eq, aw, bw)
+            plan = _PLANS[key] = log.plan()
+        else:
+            out = _contract(eq, aw, bw)
+        ctx.plan, ctx.wide = plan, wide
+        ctx.save_for_backward(a, b)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.saved_tensors
+        steps, k = ctx.plan.steps, ctx.plan.product
+        vals = [a.to(ctx.wide), b.to(ctx.wide)]
+        for func, args, kwargs, _ in steps[:k]:
+            vals.append(func(*(vals[x.index] if isinstance(x, _Slot) else x for x in args), **kwargs))
+        for step in reversed(steps[k + 1:]):
+            grad = _grad_through(step, grad)
+        roots = {0: 0, 1: 1}  # each slot's operand
+        for i, (_, args, _, _) in enumerate(steps[:k]):
+            roots[i + 2] = roots[args[0].index]
+        (li, ri), need = (x.index for x in steps[k][1]), ctx.needs_input_grad[1:]
+        grads = dict(zip((li, ri), _product_grads(steps[k][0], vals[li], vals[ri], grad,
+                                                  need[roots[li]], need[roots[ri]])))
+        for i in reversed(range(k)):
+            g = grads.pop(i + 2, None)
+            if g is not None:
+                grads[steps[i][1][0].index] = _grad_through(steps[i], g)
+        return (None, *(None if grads.get(i) is None else grads[i].to(t.dtype) for i, t in enumerate((a, b))))
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

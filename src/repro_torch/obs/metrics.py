@@ -126,6 +126,29 @@ class Histogram:
     def sum(self) -> float:
         return self._sum
 
+    @property
+    def mean(self) -> float:
+        return self._sum / self._count if self._count else 0.0
+
+    def quantile(self, q: float) -> float:
+        """Bucket-resolution quantile estimate (upper bound of the bucket
+        holding the q-th observation) — good to the ~2× bucket width, which
+        is what log-spaced buckets buy."""
+        if not 0.0 <= q <= 1.0:
+            raise ValueError(f"quantile {q} outside [0, 1]")
+        with self._lock:
+            if self._count == 0:
+                return 0.0
+            rank = q * self._count
+            cum = 0
+            for i, c in enumerate(self._counts):
+                cum += c
+                if cum >= rank and c:
+                    if i >= len(self.bounds):
+                        return self._max
+                    return min(self.bounds[i], self._max)
+        return self._max
+
     def snapshot(self) -> dict:
         with self._lock:
             return {
@@ -177,6 +200,10 @@ class MetricsRegistry:
 
     def histogram(self, name: str, unit: str = "", bounds: tuple[float, ...] = DEFAULT_BUCKETS) -> Histogram:
         return self._get(name, Histogram, unit=unit, bounds=bounds)
+
+    def names(self) -> list[str]:
+        with self._lock:
+            return sorted(self._instruments)
 
     def snapshot(self) -> dict:
         """``{name: instrument.snapshot()}`` — stable (sorted) order."""

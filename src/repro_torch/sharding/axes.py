@@ -31,7 +31,7 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 __all__ = ["MeshRules", "use_rules", "current_rules", "logical", "shard", "placements", "distribute_tree",
-           "distribute_module", "replicated", "local_block", "block_of", "block_shape_offset"]
+           "distribute_module", "place_full", "replicated", "local_block", "block_of", "block_shape_offset"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,8 +162,14 @@ def _place(x, spec, mesh):
         if tuple(x.placements) == target:
             return x
         return x.redistribute(mesh, target)
-    # the same full value on every rank: each takes its block, no collective
-    return DTensor.from_local(local_block(x, mesh, target).contiguous(), mesh, target, run_check=False,
+    return place_full(x, mesh, target)
+
+
+def place_full(x: torch.Tensor, mesh, target) -> DTensor:
+    """``x``, the same full value on every rank, as a DTensor with the
+    placements ``target`` on ``mesh``: each rank keeps its block (no
+    collective)."""
+    return DTensor.from_local(local_block(x, mesh, target).contiguous(), mesh, tuple(target), run_check=False,
                               shape=x.shape, stride=x.stride())
 
 

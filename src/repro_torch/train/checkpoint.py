@@ -28,10 +28,14 @@ memory synchronously and writes on a background thread.
 Sharded trees: ``save`` of DTensor leaves gathers each to its full array
 (every rank must call it, as every rank runs the step), writes on rank 0
 alone and ends with a barrier, so the files are the reference's layout
-whatever mesh wrote them.  ``restore(..., mesh=, specs=)`` is the
-reference's elastic reshard: each leaf comes back a DTensor placed by its
-spec on ``mesh``, each rank keeping its block of the full array it reads,
-whatever mesh wrote the checkpoint.
+whatever mesh wrote them.  :class:`AsyncCheckpointer` gathers the same way
+in the caller's thread and writes on rank 0's background thread; its
+``wait`` holds every rank until that write has landed.  ``restore`` puts a
+DTensor leaf of ``tree_like`` back as a DTensor with that leaf's mesh and
+placements; ``restore(..., mesh=, specs=)`` is the reference's elastic
+reshard: each leaf comes back a DTensor placed by its spec on ``mesh``.
+Either way each rank keeps its block of the full array it reads, whatever
+mesh wrote the checkpoint.
 """
 from __future__ import annotations
 
@@ -51,7 +55,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
-from repro_torch.sharding.axes import _is_spec, distribute_tree
+from repro_torch.sharding.axes import _is_spec, distribute_tree, place_full
 
 __all__ = ["SEP", "atomic_snapshot_dir", "write_latest", "read_latest", "save", "AsyncCheckpointer",
            "latest_step", "restore"]
@@ -192,17 +196,28 @@ def save(root: str | os.PathLike, step: int, tree: Any, *, extra: dict | None = 
 class AsyncCheckpointer:
     """Snapshot-then-write-in-background.  One in-flight save at a time
     (a newer save waits for the previous write to land — bounded memory);
-    a failed write raises on the next ``wait`` (or ``save``), once."""
+    a failed write raises on the next ``wait`` (or ``save``), once.
+
+    A tree with DTensor leaves is gathered on every rank in the caller's
+    thread (every rank calls ``save``, as every rank runs the step) and
+    written by rank 0 alone.  ``wait`` then holds every rank until rank 0's
+    write has landed, and a failed write raises on every rank, so that no
+    rank reads ``LATEST`` early and the ranks fail together."""
 
     def __init__(self, root: str | os.PathLike):
         self.root = Path(root)
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
+        self._sharded = False  # the in-flight save is rank 0's write of a DTensor tree
 
     def save(self, step: int, tree: Any, *, extra: dict | None = None) -> None:
         self.wait()
+        flat = _flatten(tree)
+        self._sharded = any(isinstance(v, DTensor) for v in flat.values())
         # synchronous device→host snapshot: after this the caller may mutate
-        snapshot = _unflatten(tree, {k: _host(v) for k, v in _flatten(tree).items()})
+        snapshot = _unflatten(tree, {k: _host(v) for k, v in flat.items()})
+        if self._sharded and dist.get_rank() != 0:
+            return
 
         def _write():
             try:
@@ -217,6 +232,12 @@ class AsyncCheckpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._sharded:  # rank 0 has joined its writer before it sends
+            self._sharded = False
+            failed = [None if self._error is None else repr(self._error)]
+            dist.broadcast_object_list(failed, src=0)
+            if failed[0] is not None and self._error is None:
+                self._error = RuntimeError(f"checkpoint write on rank 0 failed: {failed[0]}")
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -257,7 +278,8 @@ def restore(root: str | os.PathLike, tree_like: Any, step: int | None = None,
     """Restore into the structure of ``tree_like``: ``(tree, step)``, each
     leaf a tensor with the manifest's dtype, on ``device`` or else on the
     device of ``tree_like``'s leaf (the CPU for a numpy leaf; the mesh's
-    device type with ``mesh``).
+    device type with ``mesh``).  A DTensor leaf of ``tree_like`` comes back
+    a DTensor with its mesh and placements.
 
     With ``mesh`` and ``specs`` (nested like ``tree_like``, a spec per leaf)
     every leaf is a DTensor placed by its spec: the elastic-reshard path,
@@ -281,4 +303,6 @@ def restore(root: str | os.PathLike, tree_like: Any, step: int | None = None,
                 continue
             dev = device if device is not None else (like.device if isinstance(like, torch.Tensor) else "cpu")
             out[key] = _tensor(data[key], dtypes[key], dev)
+            if isinstance(like, DTensor):
+                out[key] = place_full(out[key], like.device_mesh, like.placements)
     return _unflatten(tree_like, out), step

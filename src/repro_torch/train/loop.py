@@ -244,7 +244,12 @@ def fit(*, params: Any, optimizer: Optimizer, loss_fn, data_iter_fn: Callable[[i
     is the step's time and not its enqueue time), and the restore first
     waits for an in-flight checkpoint write, so it resumes from the newest
     save.  ``drift_hook`` runs under ``torch.no_grad()``: a monitor takes
-    no part in the gradient."""
+    no part in the gradient.
+
+    DTensor parameters (and the optimizer state, which takes their
+    placements) run on every rank of their mesh: each checkpoint is
+    gathered on every rank and written by rank 0, and the restore puts
+    every leaf back with its live leaf's mesh and placements."""
     named = named_params(params)
     opt_state = optimizer.init(named)
     step_fn = make_train_step(loss_fn, optimizer, microbatches=cfg.microbatches)

@@ -23,14 +23,17 @@ parameters ``init`` makes DTensor state placed like each parameter, and
 ``update`` takes each gradient to its state's placements first (a partial
 sum over the batch axes is all-reduced there, or reduce-scattered where the
 state is sharded more finely, as ZeRO-1's is) and each new master to its
-parameter's placements last (ZeRO-1's all-gather).
+parameter's placements last (ZeRO-1's all-gather).  Adafactor's rank-1
+estimate ``vr ⊗ vc`` is computed on each rank's block, placed like the
+gradient (:func:`_outer`).
 """
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 __all__ = ["Optimizer", "adamw", "adafactor", "sgd"]
 
@@ -48,6 +51,26 @@ def _zeros32(params: dict) -> dict:
 def _master_copy(params: dict) -> dict:
     # a copy even for fp32 parameters: the master must not alias them
     return {n: p.detach().to(torch.float32, copy=True) for n, p in params.items()}
+
+
+def _outer(vr: torch.Tensor, vc: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``vr[..., None] * vc[..., None, :]``, the factored second moment's
+    rank-1 estimate, placed like ``like`` (the gradient).  On a mesh each
+    rank multiplies its own row and column blocks: DTensor's rule for a
+    broadcast product follows ``vr``'s placements and would gather the
+    columns whole on every rank, a (…, rows / p, cols) fp32 temporary and
+    two more after it (the dry run's Grok-1 train step on (16, 16))."""
+    if not isinstance(like, DTensor):
+        return vr[..., None] * vc[..., None, :]
+    rows, cols = like.ndim - 2, like.ndim - 1
+
+    def dropped(dim):  # ``like``'s placements on a statistic without ``dim``
+        return [Replicate() if p == Shard(dim) else Shard(p.dim - (p.dim > dim)) if p.is_shard() else p
+                for p in like.placements]
+
+    return local_map(lambda r, c: r[..., None] * c[..., None, :], out_placements=list(like.placements),
+                     in_placements=(dropped(cols), dropped(rows)), device_mesh=like.device_mesh,
+                     redistribute_inputs=True)(vr, vc)
 
 
 def _like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
@@ -170,7 +193,7 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30, clip_thr
             if "vr" in v:
                 vr = _like(beta * v["vr"] + (1 - beta) * torch.mean(g2, dim=-1), v["vr"])
                 vc = _like(beta * v["vc"] + (1 - beta) * torch.mean(g2, dim=-2), v["vc"])
-                denom = torch.sqrt(vr[..., None] * vc[..., None, :] / torch.clamp(
+                denom = torch.sqrt(_outer(vr, vc, g) / torch.clamp(
                     torch.mean(vr, dim=-1, keepdim=True)[..., None], min=eps))
                 new_v[n] = {"vr": vr, "vc": vc}
             else:

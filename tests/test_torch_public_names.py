@@ -2,8 +2,20 @@
 
 ``repro_torch.hd.is_supported``, ``hd.resolver.default_device_kind``, the
 substrate ``repro_torch.core`` re-exports, ``core.exact.hausdorff_tiled``,
-``core.projected.directed_hd_1d`` and ``data.pointclouds.make_dataset``,
-each held to its counterpart in ``repro`` on the same numpy inputs.
+``core.projected.directed_hd_1d``, ``data.pointclouds.make_dataset``,
+``core.variants.partial_hausdorff`` / ``chamfer``, ``HDResult.degraded`` /
+``stage_reached``, ``obs.metrics``' ``Histogram.mean`` / ``quantile`` and
+``MetricsRegistry.names``, and ``index.sharded.stage0_multiquery``, each
+held to its counterpart in ``repro`` on the same numpy inputs.
+
+``partial_hausdorff`` and ``chamfer``: the reference's direct functions
+reach its Pallas kernel, which fails under the JAX installed here
+(``pl.store`` is gone; ``tests/test_variants.py`` fails for that reason),
+so they are held to the reference's front door on its pure-JAX ``tiled``
+backend (the same reductions of the same scan), and with masks also to
+float64 on the valid rows and to the conventions ``tests/test_variants.py``
+writes down: q = 1 is the HD of the valid rows, all masked on both sides
+is 0.0, an all-masked query side is +inf.
 
 Tolerances: fp32 values ``atol 2e-5, rtol 1e-4`` (the reference's fp32
 tolerance, ``tests/test_kernels.py:115``).  ``make_dataset`` draws from a
@@ -14,6 +26,7 @@ bounds and offset, a spectrum's decay, a shift and a scale), each within
 five standard errors of the draw.
 """
 import dataclasses
+import inspect
 
 import numpy as np
 import pytest
@@ -27,14 +40,22 @@ import repro.core as ref_core  # noqa: E402
 import repro.hd as ref_hd  # noqa: E402
 from repro.core import exact as ref_exact  # noqa: E402
 from repro.core import projected as ref_projected  # noqa: E402
+from repro.core import variants as ref_variants  # noqa: E402
 from repro.data import pointclouds as ref_pc  # noqa: E402
 from repro.hd import resolver as ref_resolver  # noqa: E402
+from repro.index import multiquery as ref_multiquery  # noqa: E402
+from repro.index import sharded as ref_sharded  # noqa: E402
+from repro.index.store import SetStore as RefStore  # noqa: E402
+from repro.obs import metrics as ref_metrics  # noqa: E402
 
 import repro_torch.core as core  # noqa: E402
 import repro_torch.hd as hd  # noqa: E402
-from repro_torch.core import exact, projected  # noqa: E402
+from repro_torch import interop  # noqa: E402
+from repro_torch.core import exact, projected, variants  # noqa: E402
 from repro_torch.data import pointclouds as pc  # noqa: E402
 from repro_torch.hd import registry, resolver  # noqa: E402
+from repro_torch.index import multiquery, sharded  # noqa: E402
+from repro_torch.obs import metrics  # noqa: E402
 
 ATOL, RTOL = 2e-5, 1e-4
 # The reference's shims, which the port leaves to the front door.
@@ -201,3 +222,140 @@ def test_make_dataset_matches_reference_in_distribution(name):
         pc.make_dataset("mnist", pc.make_generator(0, "cpu"), 4, 4, d)
     with pytest.raises(ValueError, match="unknown dataset"):
         ref_pc.make_dataset("mnist", jax.random.PRNGKey(0), 4, 4, d)
+
+
+def _variant_clouds(seed):
+    a, b = _clouds(seed, 128, 100, 6)
+    return a, b
+
+
+@pytest.mark.parametrize("q", [0.0, 0.5, 0.95, 1.0])
+def test_partial_hausdorff_and_chamfer_match_reference(q):
+    a, b = _variant_clouds(20)
+    got = variants.partial_hausdorff(_t(a), _t(b), quantile=q)
+    want = ref_hd.set_distance(jnp.asarray(a), jnp.asarray(b), variant="partial", backend="tiled",
+                               config=ref_hd.HDConfig(quantile=q)).value
+    np.testing.assert_allclose(float(got), float(want), atol=ATOL, rtol=RTOL)
+    want_c = ref_hd.set_distance(jnp.asarray(a), jnp.asarray(b), variant="chamfer", backend="tiled").value
+    np.testing.assert_allclose(float(variants.chamfer(_t(a), _t(b))), float(want_c), atol=ATOL, rtol=RTOL)
+    for name in ("partial_hausdorff", "chamfer"):  # the reference's signatures
+        assert name in variants.__all__
+        assert inspect.signature(getattr(variants, name)).parameters.keys() == \
+            inspect.signature(getattr(ref_variants, name)).parameters.keys()
+
+
+def _float64_variants(a, b, va, vb, q):
+    """(partial HD, chamfer) in float64 on the valid rows, by the written
+    conventions: an empty target set gives +inf, an empty query side 0.0."""
+    a, b = a[va].astype(np.float64), b[vb].astype(np.float64)
+    d = np.sqrt(((a[:, None] - b[None]) ** 2).sum(-1))
+
+    def ranked(mins):
+        if mins.size == 0:
+            return 0.0
+        return np.sort(mins)[max(1, int(np.ceil(np.float32(q) * np.float32(mins.size)))) - 1]
+
+    min_a = d.min(1) if b.shape[0] else np.full(a.shape[0], np.inf)
+    min_b = d.min(0) if a.shape[0] else np.full(b.shape[0], np.inf)
+    mean = [m.mean() if m.size else 0.0 for m in (min_a, min_b)]
+    return max(ranked(min_a), ranked(min_b)), mean[0] + mean[1]
+
+
+MASKED = {  # the masked conventions of tests/test_variants.py: (valid_a, valid_b) over 128 × 100 rows
+    "quantile_one_is_hd_of_valid_rows": (np.arange(128) < 100, np.arange(100) < 80),
+    "all_masked_both_sides_is_zero": (np.zeros(128, bool), np.zeros(100, bool)),
+    "all_masked_query_side_is_infinite": (np.zeros(128, bool), None),
+    "front_door_masked": (np.arange(128) < 70, None),
+}
+
+
+@pytest.mark.parametrize("case", list(MASKED))
+@pytest.mark.parametrize("q", [0.0, 0.5, 1.0])
+def test_masked_partial_hausdorff_and_chamfer(case, q):
+    a, b = _variant_clouds(21)
+    va, vb = MASKED[case]
+    vb_full = np.ones(100, bool) if vb is None else vb
+    kw = {"valid_a": _t(va), "valid_b": None if vb is None else _t(vb)}
+    got = float(variants.partial_hausdorff(_t(a), _t(b), quantile=q, **kw))
+    got_c = float(variants.chamfer(_t(a), _t(b), **kw))
+    want, want_c = _float64_variants(a, b, va, vb_full, q)
+    if np.isinf(want):
+        assert np.isinf(got) and got > 0
+    else:
+        np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+    if case == "quantile_one_is_hd_of_valid_rows" and q == 1.0:
+        np.testing.assert_allclose(got, float(exact.hausdorff_dense(_t(a[:100]), _t(b[:80]))), rtol=1e-5)
+    if case == "all_masked_both_sides_is_zero":
+        assert got == 0.0 and got_c == 0.0
+    if case == "all_masked_query_side_is_infinite":
+        assert np.isinf(got)
+    # the reference's front door on its pure-JAX tiled backend
+    masks = (jnp.asarray(va), None if vb is None else jnp.asarray(vb))
+    for variant, mine, cfg in (("partial", got, ref_hd.HDConfig(quantile=q)), ("chamfer", got_c, ref_hd.HDConfig())):
+        ref = float(ref_hd.set_distance(jnp.asarray(a), jnp.asarray(b), variant=variant, backend="tiled",
+                                        masks=masks, config=cfg).value)
+        if np.isinf(ref) or np.isnan(ref):
+            assert np.isinf(mine) == np.isinf(ref) and np.isnan(mine) == np.isnan(ref), (variant, mine, ref)
+        else:
+            np.testing.assert_allclose(mine, ref, atol=ATOL, rtol=RTOL)
+    # the port's front door reduces the same scan: bitwise the direct call
+    via = hd.set_distance(_t(a), _t(b), variant="partial", backend="tiled", masks=(kw["valid_a"], kw["valid_b"]),
+                          config=hd.HDConfig(quantile=q)).value
+    assert float(via) == got or (np.isnan(float(via)) and np.isnan(got))
+
+
+def test_result_degraded_and_stage_reached_match_reference():
+    a, b = _clouds(22, 64, 48, 4)
+    got = hd.set_distance(_t(a), _t(b), backend="tiled")
+    want = ref_hd.set_distance(jnp.asarray(a), jnp.asarray(b), backend="tiled")
+    assert (got.degraded, got.stage_reached) == (want.degraded, want.stage_reached) == (False, "complete")
+    meta = dataclasses.replace(got.meta, degraded=True, stage_reached="stage1")
+    assert dataclasses.replace(got, meta=meta).degraded and dataclasses.replace(got, meta=meta).stage_reached == "stage1"
+
+
+OBSERVED = [0.5, 1e-3, 2e-3, 0.02, 0.02, 3.0, 7e4, 1e-5]
+
+
+def test_histogram_mean_quantile_and_names_match_reference():
+    mine, ref = metrics.MetricsRegistry(), ref_metrics.MetricsRegistry()
+    for reg in (mine, ref):
+        reg.counter("b.count")
+        reg.gauge("a.gauge")
+        h = reg.histogram("c.lat", unit="s")
+        assert h.mean == 0.0 and h.quantile(0.5) == 0.0
+        for v in OBSERVED:
+            h.observe(v)
+    assert mine.names() == ref.names() == ["a.gauge", "b.count", "c.lat"]
+    h, rh = mine.histogram("c.lat"), ref.histogram("c.lat")
+    assert h.mean == rh.mean
+    for q in (0.0, 0.5, 1.0):
+        assert h.quantile(q) == rh.quantile(q)
+    for q in (-0.1, 1.5):
+        with pytest.raises(ValueError):
+            rh.quantile(q)
+        with pytest.raises(ValueError, match="outside"):
+            h.quantile(q)
+
+
+@pytest.mark.parametrize("directed", [False, True])
+def test_stage0_multiquery_matches_reference(directed):
+    rng = np.random.default_rng(23)
+    sets = [rng.normal(size=(int(rng.integers(4, 30)), 6)).astype(np.float32) for _ in range(40)]
+    qs = [rng.normal(size=(n, 6)).astype(np.float32) for n in (5, 9, 12)]
+    ref = RefStore(dim=6, min_bucket=16)
+    ref.add_many(sets)
+    store = interop.store_from_reference(np.asarray(ref.directions), sets, min_bucket=16, device="cpu")
+    ref_q = ref_multiquery._stack_query_summaries([ref.summarize(jnp.asarray(q)) for q in qs])
+    want = ref_sharded.stage0_multiquery(ref_sharded.make_shard_context(1), ref_q, ref.summaries(),
+                                         directed=directed)
+    qsums = multiquery._stack_query_summaries([store.summarize(torch.from_numpy(q)) for q in qs])
+    got = sharded.stage0_multiquery(sharded.make_shard_context(1, "cpu"), qsums, store.summaries(),
+                                    directed=directed)
+    assert "stage0_multiquery" in sharded.__all__
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == np.float64 and g.shape == w.shape == (len(qs), len(sets))
+        np.testing.assert_allclose(g, w, atol=ATOL, rtol=RTOL)
+    # the stage-0 rows of search_batch: stage0_bounds' bits
+    for g, w in zip(got, sharded.stage0_bounds(sharded.make_shard_context(1, "cpu"), qsums, store.summaries(),
+                                               directed=directed)):
+        assert np.array_equal(g, w.double().numpy())
