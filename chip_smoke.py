@@ -14,7 +14,9 @@ Phases (each asserts; any failure exits non-zero):
      kernel, and no spill in any of the four instances (resident or
      streamed tile × directed or bidirectional) of kernels 1, 2 and 3 or
      in any head-dim instance of kernel 4 (bf16: 16, 64, 80, 128, 192,
-     256; fp32: 16 to 256);
+     256; fp32: 16 to 256); the registers each bf16 instance's machine
+     code uses (cuobjdump), which at hd 128 must exceed the launch's 168
+     and stay within setmaxnreg's 240 (the consumers' S, P and O);
   3. kernel vs plain version on the same CUDA tensors (fp32 and bf16, masks,
      empty sides, pruning, a grid whose CTAs walk several tile pairs), per
      min-d² entry within 2·(D+2)·eps32·scale², HD within fp_value_margin
@@ -148,8 +150,10 @@ the seed):
      and not, GQA groups 1, 2, 4, 8, hd 64, 80 and 128, Sq and Sk on either
      side of a 128-key tile's edge and of the diagonal tile, Sk < 128, one
      query row, TinyLlama's, StableLM-3B's and DeepSeek-67B's heads at
-     4,096; every other head dim kind: 16, 192 and 256 (instances), 3, 40
-     and 96 (zero-padded to the next instance); sliding windows inside one
+     4,096, MHA at hd 128 over three groups of the L2-aware block order
+     (2 × 13 heads at 4,000, groups of 9, 9 and 8); every other head dim
+     kind: 16, 192 and 256 (instances), 3, 40 and 96 (zero-padded to the
+     next instance); sliding windows inside one
      key tile, across several and past Sk; query offsets of a continued
      prefill, past the keys, and with rows that see no key at all), and
      against the plain version at kv chunks 64 and 512, per entry within
@@ -187,7 +191,8 @@ the seed):
   15. CUDA-event times of kernel 4 at TinyLlama's (8, 4,096) and
      (1, 32,768), 32 query heads over 4 kv heads of 64, at (1, 8,192) with
      StableLM-3B's 32/32 heads of 80 and DeepSeek-67B's 64/8 of 128, at
-     OLMoE-1B-7B's (8, 4,096) with 16/16 heads of 128, causal bf16, then TinyLlama's (1, 32,768) with a 4,096 window (against the
+     OLMoE-1B-7B's (8, 4,096) with 16/16 heads of 128 and Grok-1's 48/8
+     of 128 at the same shape, causal bf16, then TinyLlama's (1, 32,768) with a 4,096 window (against the
      causal call) and the smoke configs' heads (8, 4,096, 4/2 of 16, fp32),
      with its bound, its plain version and scaled_dot_product_attention as
      a yardstick (flash backend, causal; for the two new shapes the
@@ -395,8 +400,9 @@ DECODE_NEW = 32
 # sliding windows (inside one key tile, across several, past Sk) and query
 # offsets (a continued prefill with Sk > Sq, rows past the keys, and rows
 # that see no key at all).  bf16 goes through the tensor-core kernel
-# (128-row query blocks, 64 at hd > 128; 128-key tiles, 64 at hd > 80),
-# fp32 through the CUDA-core one (64 and 64).
+# (128-row query blocks and 128-key tiles, 64 and 64 at hd > 128; blocks
+# in the L2-aware order of flash.kv_group's groups), fp32 through the
+# CUDA-core one (64 and 64).
 FLASH_CASES = (
     (2, 128, 128, 4, 4, 64, "float32", True),
     (2, 128, 128, 4, 4, 64, "float32", False),
@@ -408,7 +414,7 @@ FLASH_CASES = (
     # Sq = Sk = 300: the diagonal tile is the third, ragged at both edges.
     (1, 300, 300, 8, 2, 64, "bfloat16", True),
     (1, 300, 300, 8, 2, 64, "bfloat16", False),
-    (1, 300, 300, 8, 2, 128, "bfloat16", True),  # 64-key tiles: the diagonal is the fifth
+    (1, 300, 300, 8, 2, 128, "bfloat16", True),  # the diagonal is the third tile here too
     # Sk < 128: one ragged key tile below queries that run past it.
     (2, 200, 77, 8, 2, 64, "bfloat16", True),
     (2, 200, 77, 8, 2, 64, "bfloat16", False),
@@ -421,6 +427,10 @@ FLASH_CASES = (
     (1, 4096, 4096, 32, 4, 64, "float32", True),
     (1, 4096, 4096, 64, 8, 128, "bfloat16", True),  # DeepSeek-67B's heads
     (1, 4096, 4096, 32, 32, 80, "bfloat16", True),  # StableLM-3B's heads
+    # MHA at hd 128 over several groups of the block order: 26 (b, kv head)
+    # pairs of 2 MB of K and V, at most 12 to a group on a 50 MiB L2 (9, 9, 8);
+    # Sq = Sk = 4,000 ends 32 rows into a query block and a key tile.
+    (2, 4000, 4000, 13, 13, 128, "bfloat16", True),
     # Every head dim: the smoke configs' 16, padded ones, the one-consumer instances.
     (2, 300, 300, 4, 2, 16, "bfloat16", True),
     (2, 300, 300, 4, 2, 16, "float32", True),
@@ -452,7 +462,8 @@ FLASH_CASES = (
 )
 # Phase 15's timed shapes (B, S, H, KV, hd, dtype, window), causal:
 # TinyLlama's first, then StableLM-3B's, DeepSeek-67B's and OLMoE-1B-7B's
-# heads (MHA, 16 of 128, at its prefill shape 8 × 4,096), then
+# heads (MHA, 16 of 128, at its prefill shape 8 × 4,096), Grok-1's (48/8
+# of 128) at the same shape (K and V 128 MiB, past the L2), then
 # TinyLlama at 32,768 with a 4,096 window and the smoke configs' heads (4/2
 # of 16, fp32 as the smoke configs run).
 FLASH_TIMES = (
@@ -461,6 +472,7 @@ FLASH_TIMES = (
     (1, 8_192, 32, 32, 80, "bfloat16", None),
     (1, 8_192, 64, 8, 128, "bfloat16", None),
     (8, 4_096, 16, 16, 128, "bfloat16", None),
+    (8, 4_096, 48, 8, 128, "bfloat16", None),
     (1, 32_768, 32, 4, 64, "bfloat16", 4_096),
     (8, 4_096, 4, 2, 16, "float32", None),
 )
@@ -733,7 +745,19 @@ def phase_build():
     report = _build.ptxas_report(text_of["flash_fwd"])
     for route, entry4 in (("wgmma", "flash_fwd_sm90_kernel"), ("ffma", "flash_fwd_kernel")):
         instances[f"flash_fwd/{route}"] = {k: v for k, v in report.items() if entry4 in k}
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas, "instances": instances})
+    # ptxas's line is the launch's budget (168 at 384 threads); the registers a
+    # consumer warpgroup runs with after setmaxnreg show only in the machine code
+    lib4 = sorted(_build.BUILD_DIR.glob("flash_fwd-*.so"), key=lambda f: f.stat().st_mtime)[-1]
+    cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib4)], capture_output=True, text=True, check=True).stdout
+    for name, n_regs in _build.sass_registers(sass).items():
+        if name in instances["flash_fwd/wgmma"]:
+            instances["flash_fwd/wgmma"][name]["sass_registers"] = n_regs
+    hd128 = {k: v for k, v in instances["flash_fwd/wgmma"].items() if "kernelILi128E" in k}
+    consumer_regs = max(v["sass_registers"] for v in hd128.values())
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas, "instances": instances,
+          "hd128_consumer_registers": consumer_regs})
+    assert len(hd128) == 2 and 168 < consumer_regs <= 240, hd128  # S 64 + P 32 + O 64 need more than 168
     # four instances each of kernels 1-3: {resident, streamed} × {directed, bidirectional};
     # kernel 4: one per head dim, twice on the bf16 route (with and without an offset or window)
     for name, inst in instances.items():

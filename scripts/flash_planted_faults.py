@@ -12,10 +12,15 @@ each with one fault planted; one ``nvcc`` each, started together.
 which only the plain causal instance ``<HD, false>`` has: the last or a
 middle key tile given no weight, the first tile's p counted twice in P·V, a
 missing rescale of acc or l, the wrong kv head, the diagonal tile left
-unmasked.  They run at TinyLlama's prefill shape (8 × 4,096, 32 query and
-4 kv heads of 64, bf16), causal and not, and each must fail every case it
-can reach (the unmasked diagonal: the causal one; without the mask it is
-no fault).
+unmasked, and a head index off by one within a group of the block order
+(a group's first head is never computed, its last twice).  They run at
+TinyLlama's prefill shape (8 × 4,096, 32 query and 4 kv heads of 64,
+bf16), causal and not, and each must fail every case it can reach (the
+unmasked diagonal: the causal one; without the mask it is no fault).  The
+block-order fault must also fail ``ORDER_CASE``, the case of phase 13 that
+spans several groups of the order at hd 128 (MHA, 26 (batch, head) pairs
+in groups of 9, 9 and 8 on a 50 MiB L2), where the untouched source
+passes.
 
 ``SPAN_FAULTS`` sit in code that only the instance for query offsets and
 windows ``<HD, true>`` runs: the window test off by one, the first key tile
@@ -28,7 +33,9 @@ hold it.
 
 Every copy and the untouched source are held entry by entry to the plain
 version with ``chip_smoke.flash_error``, the check that phases 13-15 of
-``chip_smoke.py`` apply; the untouched source must pass every case.
+``chip_smoke.py`` apply; the untouched source must pass every case.  Each
+launch writes into an output filled with NaN, so rows a faulty copy never
+stores fail the check too.
 Prints one JSON line per (variant, case) and a summary line; exits 0 when
 every verdict is as expected.  Needs one CUDA card and ``nvcc``.
 """
@@ -66,8 +73,14 @@ FAULTS = {
                      "for (int r = 0; r < 2; ++r) l[r] = l[r] + sum[r];"),
     "kv_head_mod": ("const int kvh = h / (H / KV);", "const int kvh = h % KV;"),
     "diagonal_unmasked": ("} else if (col >= Sk || (causal && col > pos)) {", "} else if (col >= Sk) {"),
+    "block_head_off_by_one": ("const int bh = first * (H / KV) + r % heads;",
+                              "const int bh = first * (H / KV) + min(r % heads + 1, heads - 1);"),
 }
 CAUSAL_ONLY = {"diagonal_unmasked"}
+# (B, Sq, Sk, H, KV, hd, dtype, causal): the case of chip_smoke.FLASH_CASES
+# that the block-order fault must fail as well.
+ORDER_CASE = (2, 4000, 4000, 13, 13, 128, "bfloat16", True)
+ORDER_FAULTS = ("block_head_off_by_one",)
 # case -> (B, Sq, Sk, H, KV, hd, q_offset, window), bf16, causal.
 SPAN_CASES = {
     "window50": (1, 1_024, 1_024, 32, 4, 64, 0, 50),
@@ -142,13 +155,20 @@ def main() -> int:
         v = torch.randn((b, s, kv, hd), generator=gen, device="cuda").to(torch.bfloat16)
         pristine = F._lib
         verdicts = {}
+
+        def run(lib, q, k, v, **mask):
+            """One launch of ``lib`` into an output of NaN."""
+            F._lib = lib
+            out = torch.full_like(q, float("nan"))
+            F.flash_fwd(q, k, v, out, **mask)
+            return out
+
         try:
             for causal in (True, False):
                 want = F.flash_attention_plain(q, k, v, causal=causal)
                 abs_v = C.weighted_abs_v(q, k, v, causal=causal)
                 for name, lib in libs.items():
-                    F._lib = lib
-                    out = F.flash_attention(q, k, v, causal=causal)
+                    out = run(lib, q, k, v, causal=causal)
                     e = C.flash_error(out, want, abs_v)
                     passed = e["max_ratio"] <= 1
                     is_fault = name in FAULTS and (causal or name not in CAUSAL_ONLY)
@@ -166,8 +186,7 @@ def main() -> int:
                 want = F.flash_attention_plain(q, k, v, causal=True, chunk=sk, **mask)
                 abs_v = C.weighted_abs_v(q, k, v, causal=True, **mask)
                 for name in ("none", *SPAN_FAULTS):
-                    F._lib = libs[name]
-                    out = F.flash_attention(q, k, v, causal=True, **mask)
+                    out = run(libs[name], q, k, v, causal=True, **mask)
                     e = C.flash_error(out, want, abs_v)
                     passed = e["max_ratio"] <= 1  # NaN fails
                     is_fault = name != "none" and case in SPAN_FAULTS[name][2]
@@ -176,6 +195,23 @@ def main() -> int:
                             "window": window, "passed": passed, "entries": out.numel(), **e})
                     del out
                 del q, k, v, want, abs_v
+            b, sq, sk, h, kv, hd, _, causal = ORDER_CASE
+            q = torch.randn((b, sq, h, hd), generator=gen, device="cuda").to(torch.bfloat16)
+            k = torch.randn((b, sk, kv, hd), generator=gen, device="cuda").to(torch.bfloat16)
+            v = torch.randn((b, sk, kv, hd), generator=gen, device="cuda").to(torch.bfloat16)
+            want = F.flash_attention_plain(q, k, v, causal=causal, chunk=sk)
+            abs_v = C.weighted_abs_v(q, k, v, causal=causal)
+            l2 = torch.cuda.get_device_properties(q.device).L2_cache_size
+            group = F.kv_group(b, sk, kv, hd, l2)
+            for name in ("none", *ORDER_FAULTS):
+                out = run(libs[name], q, k, v, causal=causal)
+                e = C.flash_error(out, want, abs_v)
+                passed = e["max_ratio"] <= 1
+                verdicts[(name, "order_case")] = passed != (name != "none")
+                C.emit({"variant": name, "case": "order_case", "shape": list(ORDER_CASE[:6]), "group": group,
+                        "groups": -(-b * kv // group), "passed": passed, "entries": out.numel(), **e})
+                del out
+            del q, k, v, want, abs_v
         finally:
             F._lib = pristine
     ok = all(verdicts.values())

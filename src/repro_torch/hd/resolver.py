@@ -112,29 +112,36 @@ def resolve_block_sizes(
     return 2048, 2048
 
 
-def resolve_masked_backend(device_kind: str = "cpu") -> str:
+def resolve_masked_backend(n_q: int, cap: int, d: int, *, device_kind: str = "cpu") -> str:
     """The ``core.masked.EXACT_MASKED_BACKENDS`` name for the cascade's
     bucket passes (stages 1 and 2a): the batched bucket kernel on the card
-    (``batched_cuda``), its plain version on the CPU (``batched_mirror``)."""
+    (``batched_cuda``), its plain version on the CPU (``batched_mirror``).
+    ``n_q``, ``cap`` and ``d`` are the reference's parameters, unused as it
+    leaves them (reserved for per-shape tuning)."""
+    del n_q, cap, d
     if device_kind == "cuda":
         return "batched_cuda"
     return "batched_mirror"
 
 
-def resolve_multiquery_backend(device_kind: str = "cpu") -> str:
+def resolve_multiquery_backend(q_batch: int, cap: int, d: int, *, device_kind: str = "cpu") -> str:
     """The ``core.masked.EXACT_MASKED_BACKENDS`` name for ``search_batch``'s
     multi-query bucket passes (stage 2a): the multi-query bucket kernel on
     the card (``multiquery_cuda``), its plain version elsewhere
-    (``multiquery_mirror``)."""
+    (``multiquery_mirror``).  ``q_batch``, ``cap`` and ``d`` are the
+    reference's parameters, unused as it leaves them."""
+    del q_batch, cap, d
     if device_kind == "cuda":
         return "multiquery_cuda"
     return "multiquery_mirror"
 
 
-def resolve_anytime_refine_cap(n_sets: int, budget: int | None) -> int:
+def resolve_anytime_refine_cap(n_sets: int, k: int, budget: int | None) -> int:
     """Cap on raw exact refines the anytime drain may spend: ``n_sets``
     when unbounded (a drain that refines every candidate has resolved the
-    frontier), else the budget clamped into [0, n_sets]."""
+    frontier), else the budget clamped into [0, n_sets].  ``k`` is the
+    reference's parameter, unused as it leaves it."""
+    del k
     if budget is None:
         return int(n_sets)
     return max(0, min(int(budget), int(n_sets)))

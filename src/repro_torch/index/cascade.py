@@ -498,7 +498,7 @@ def _search_impl(
         shard_ctx = _sharded.ShardContext([q.device])
     else:
         shard_ctx = _sharded.make_shard_context(shards, device_kind)
-    mb = masked_backend or resolver.resolve_masked_backend(device_kind)
+    mb = masked_backend or resolver.resolve_masked_backend(int(q.shape[0]), 0, store.dim, device_kind=device_kind)
     available = masked_backend_ladder(mb, device_kind)
     backend_fallbacks: list[str] = []
     # One refine-backend decision per search, against the corpus's largest
@@ -699,7 +699,7 @@ def _search_impl(
                 "cascade.anytime", epsilon=epsilon, budget=-1 if budget is None else budget, k=k_eff,
             ) as _spany:
                 _faults.fire(_POINT_ANYTIME)
-                cap_refines = resolver.resolve_anytime_refine_cap(n, budget)
+                cap_refines = resolver.resolve_anytime_refine_cap(n, k_eff, budget)
                 front, _, _ = anytime_frontier(lb, ub, resolved, k_eff, epsilon)
                 stage0_front = int(front.sum())
 

@@ -299,7 +299,7 @@ def _search_batch_impl(
             int(store.counts().max()), store.dim, device_kind=device_kind,
         )
 
-    mqb = masked_backend or resolver.resolve_multiquery_backend(device_kind)
+    mqb = masked_backend or resolver.resolve_multiquery_backend(n_act, 0, store.dim, device_kind=device_kind)
     available = masked_backend_ladder(mqb, device_kind)
     backend_fallbacks: list[str] = []
     _obs.event(
@@ -536,7 +536,7 @@ def _search_batch_impl(
                             "cascade.anytime", epsilon=epsilon,
                             budget=-1 if budget is None else budget, k=k_u[ai],
                         ) as _spany:
-                            cap_r = resolver.resolve_anytime_refine_cap(n, budget)
+                            cap_r = resolver.resolve_anytime_refine_cap(n, k_u[ai], budget)
                             front = _front_union(ai)
                             while front.any() and int(refines[ai]) < cap_r:
                                 checkpoint()

@@ -22,7 +22,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "compile_library", "find_nvcc", "load_library", "ptxas_report"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "compile_library", "find_nvcc", "load_library", "ptxas_report",
+           "sass_registers"]
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -109,4 +110,36 @@ def ptxas_report(log: str) -> dict[str, dict[str, int]]:
             m = re.search(r"Used (\d+) registers", ln)
             if m:
                 out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def sass_registers(sass: str) -> dict[str, int]:
+    """The registers each kernel's machine code touches, by mangled name,
+    from ``cuobjdump -sass``: one past the highest register any instruction
+    names, an accumulator of ``HGMMA.64xNx16.F32`` counted as the N/2
+    registers it spans and a 64- or 128-bit access as 2 or 4.  Where a
+    kernel raises its warps' registers with ``setmaxnreg``, this is what the
+    raised branch was given, which ptxas's ``-v`` line (the launch's budget)
+    does not show."""
+    out: dict[str, int] = {}
+    name = None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : ([\w$]+)", ln)
+        if m:
+            name = m.group(1)
+            out[name] = 0
+            continue
+        if name is None or "/*" not in ln:
+            continue
+        regs = [int(r) for r in re.findall(r"\bR(\d+)\b", ln)]
+        if not regs:
+            continue
+        top = max(regs) + 1
+        m = re.search(r"HGMMA\.64x(\d+)x\d+\.F32", ln)
+        if m:
+            top = max(top, regs[0] + int(m.group(1)) // 2)
+        m = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?(LD|ST)\w*\.(?:\w+\.)*?(64|128)\b", ln)
+        if m:  # a load's first register is its data, a store's last
+            top = max(top, (regs[0] if m.group(1) == "LD" else regs[-1]) + int(m.group(2)) // 32)
+        out[name] = max(out[name], top)
     return out

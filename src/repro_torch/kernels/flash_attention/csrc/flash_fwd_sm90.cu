@@ -21,17 +21,41 @@
 //    already in the A-fragment layout.  B = V is read from shared memory in
 //    its native (keys, hd) layout, MN-major (the transpose bit).
 //
-// Design (one CTA per (b·h, query block), query blocks heaviest causal
-// block first, as flash_fwd.cu; hd ≤ 128: 384 threads and 128-row blocks,
-// hd > 128: 256 threads and 64-row blocks, see "Registers"):
+// Design (one CTA per (b·h, query block); hd ≤ 128: 384 threads, 128-row
+// blocks and 128-key tiles, hd > 128: 256 threads, 64 and 64, see
+// "Registers"):
+//  * Block order.  The grid is 1-D and walks groups of at most `group`
+//    (b, kv head) pairs with all their query heads (GQA heads stay with
+//    their kv head); within a group the heaviest causal query block of
+//    every head comes first, then the next-lighter ones, as flash_fwd.cu
+//    orders its blocks.  The launcher sizes a group so that its K and V fit
+//    half the card's L2 (flash.kv_group, from the device's L2 size), and
+//    the pairs are split into groups whose sizes differ by one at most: a
+//    small remainder group last would start its heaviest blocks late, with
+//    too few heads to fill the card (StableLM-3B's 32 heads of 80 in
+//    groups of 10, 10, 10 and 2 ran 5% behind the flat order).  In
+//    the flat order (every head's block qb, then every head's qb − 1) a
+//    head's K/V prefix was read again only one wave later, after the other
+//    heads had streamed theirs: at OLMoE-1B-7B's 8 × 16 heads of 128 at
+//    4,096 that is ~4.4 GB from HBM a call.  Within a group the CTAs in
+//    flight re-read K and V from L2.  With GQA the query heads of a kv
+//    head already share it within a wave, and the order lands within 1–3%
+//    of the flat one there.  One group of all B·KV pairs is the flat
+//    order.  No persistent grid: the order alone took OLMoE's heads from
+//    the flat order's 1.59 ms to 1.04 ms (H100 80GB HBM3 at 700 W,
+//    PERF.md), and a group's tail is light blocks already.
 //  * Warpgroup 2 is the producer: it drops to 24 registers (`setmaxnreg`),
 //    and one thread of its first warp issues every copy.  Q, K and V are
 //    copied by TMA (`cp.async.bulk.tensor.4d`) straight from their
 //    (B, S, heads, hd) layouts, one 4-D tensor map each (strides heads·hd·2
-//    bytes), kv head h / (H / KV) (GQA by coordinate: no expanded copy).  K/V tiles of BN
-//    keys (128; 64 at hd > 80) go through a ring of 2 stages, handed over
-//    with full / empty `mbarrier`s (K and V of a stage have a full barrier
-//    each).
+//    bytes), kv head h / (H / KV) (GQA by coordinate: no expanded copy).
+//    K/V tiles of BN keys go through a ring of 3 stages, handed over with
+//    full / empty `mbarrier`s (K and V of a stage have a full barrier
+//    each).  A stage is free only when both consumers' P·V of it is done,
+//    so with 2 stages the next tile's copy was issued just as it was
+//    needed and its latency showed every tile; the third stage keeps one
+//    tile in flight ahead (3 × 64 KiB of K/V and 32 KiB of Q at hd 128,
+//    225 KiB of the 227 a block may hold).
 //  * Warpgroups 0 and 1 are the consumers, 64 query rows each (hd > 128:
 //    warpgroup 0 alone, and warpgroup 1 the producer); they raise
 //    their registers to 240 with what the producer gave back (a CTA's
@@ -50,12 +74,16 @@
 //    per region (N = 64 or 16).
 //  * Registers: the overlap keeps the scores of tile j (BN/2 fp32 per
 //    thread), P of tile j − 1 (BN/4 bf16 pairs) and O (hd/2 fp32) live at
-//    once.  ptxas allocates every role within the launch's 168 registers
-//    (384 threads; `setmaxnreg` does not raise its budget), so hd 128 takes
-//    64-key tiles: 32 + 16 + 64 instead of 64 + 32 + 64, which spilled.
-//    At hd 192 and 256 O alone holds 96 and 128, so those instances run one
-//    consumer warpgroup in a 256-thread CTA: a budget of 255 registers, no
-//    `setmaxnreg` and no ping-pong, 64-key tiles (32 + 16 + 128 at hd 256).
+//    once: 64 + 32 + 64 at hd 128.  ptxas gives the consumer branch the 240
+//    registers of its `setmaxnreg.inc` (its -v line still says 168, the
+//    launch's budget; the machine code of the hd-128 instance uses 184,
+//    with no spill), but only if no path of that branch can trap: one
+//    `__trap()` there and ptxas holds the whole branch to 168, which spills
+//    P at hd 128.  So the consumers' mbarrier waits do not trap (mbar_wait,
+//    the three-argument form) and the producer's do.  At hd 192 and 256 O
+//    alone holds 96 and 128, so those instances run one consumer warpgroup
+//    in a 256-thread CTA: a budget of 255 registers, no `setmaxnreg` and no
+//    ping-pong, 64-key tiles (32 + 16 + 128 at hd 256).
 //  * Online softmax in the wgmma accumulator layout: a thread holds rows
 //    r and r + 8 of its warp's 16, BN/4 keys each; row maxima reduce across
 //    the 4 lanes of a quad, l stays a per-thread partial sum (rescaled by the
@@ -130,11 +158,13 @@ struct Shape {
   static constexpr int BM = 64 * NC;              // query rows per CTA
   static constexpr int CONSUMERS = 128 * NC;
   static constexpr int THREADS = CONSUMERS + 128;  // and the producer warpgroup
-  static constexpr int BN = HD > 80 ? 64 : 128;   // keys per tile (see the header)
+  static constexpr int BN = NC == 2 ? 128 : 64;   // keys per tile (see the header)
+  static constexpr int STAGES = 3;                // the K/V ring (see the header)
   using Q = Tile<HD, BM>;
   using KV = Tile<HD, BN>;
-  // Q, K[2], V[2], then 7 mbarriers; 1,024 bytes of slack to align the base.
-  static constexpr int SMEM = Q::BYTES + 4 * KV::BYTES + 64 + 1024;
+  // Q, K[STAGES], V[STAGES], then 1 + 3·STAGES mbarriers; 1,024 bytes of
+  // slack to align the base.
+  static constexpr int SMEM = Q::BYTES + 2 * STAGES * KV::BYTES + 8 * (1 + 3 * STAGES) + 1024;
 };
 
 // --- shared-memory addresses, mbarriers, TMA ---------------------------------
@@ -156,21 +186,34 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
 }
 
-// Wait until the phase of `bar` with this parity has completed.  A wait
-// that outlasts 2^26 polls (seconds) traps, so a broken hand-over fails the
-// launch instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+// Poll until the phase of `bar` with this parity has completed, at most
+// 2^26 times (seconds); false if it never did.
+__device__ __forceinline__ bool mbar_poll(uint32_t bar, uint32_t parity, uint32_t max_polls = 1u << 26) {
   uint32_t done;
-  for (uint32_t polls = 0;; ++polls) {
+  for (uint32_t polls = 0; polls <= max_polls; ++polls) {
     asm volatile(
         "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done)
         : "r"(bar), "r"(parity)
         : "memory");
-    if (done) return;
-    if (polls == (1u << 26)) __trap();
+    if (done) return true;
   }
+  return false;
+}
+
+// The producer's wait: one that outlasts the polls traps, so a broken
+// hand-over fails the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (!mbar_poll(bar, parity)) __trap();
+}
+
+// A consumer's wait.  A trap in the consumer branch holds ptxas to the
+// launch's 168 registers there (see "Registers" in the header), so one that
+// outlasts the polls marks the thread `late` instead: its later waits poll
+// once and its rows are stored as NaN, which every check rejects.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity, bool& late) {
+  late |= !mbar_poll(bar, parity, late ? 0u : 1u << 26);
 }
 
 // One box of a 4-D tensor map (hd, heads, S, B) into shared memory, counted
@@ -432,8 +475,8 @@ __global__ void __launch_bounds__(Shape<HD>::THREADS, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tq16,
                       const __grid_constant__ CUtensorMap tk16, const __grid_constant__ CUtensorMap tv16,
-                      __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H, int KV, float scale_log2,
-                      int causal, int q_offset_arg, int window_arg) {
+                      __nv_bfloat16* __restrict__ o, int B, int Sq, int Sk, int H, int KV, int group,
+                      float scale_log2, int causal, int q_offset_arg, int window_arg) {
   const int q_offset = SPAN ? q_offset_arg : 0;
   const int window = SPAN ? window_arg : 0x7fffffff;
   using Tq = typename Shape<HD>::Q;
@@ -446,19 +489,38 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
   // Swizzled TMA boxes and wgmma descriptors want 1,024-byte-aligned tiles.
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_tile = base;
-  const uint32_t bars = base + Tq::BYTES + 4 * Tkv::BYTES;
+  constexpr int STAGES = Shape<HD>::STAGES;
+  const uint32_t bars = base + Tq::BYTES + 2 * STAGES * Tkv::BYTES;
   // mbarriers: full_q; full_k[2]; full_v[2]; empty[2] (K and V of a stage consumed).
   const uint32_t full_q = bars;
   auto k_tile = [&](int st) { return base + Tq::BYTES + st * Tkv::BYTES; };
-  auto v_tile = [&](int st) { return base + Tq::BYTES + (2 + st) * Tkv::BYTES; };
+  auto v_tile = [&](int st) { return base + Tq::BYTES + (STAGES + st) * Tkv::BYTES; };
   auto full_k = [&](int st) { return bars + 8 * (1 + st); };
-  auto full_v = [&](int st) { return bars + 8 * (3 + st); };
-  auto empty = [&](int st) { return bars + 8 * (5 + st); };
+  auto full_v = [&](int st) { return bars + 8 * (1 + STAGES + st); };
+  auto empty = [&](int st) { return bars + 8 * (1 + 2 * STAGES + st); };
 
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
+  // The block order (see the header): the B·KV (b, kv head) pairs in
+  // ceil(B·KV / group) groups of at most `group`, the first B·KV % n_groups
+  // of them one pair larger, each with all its query heads; within a group
+  // the heaviest causal query block of every head first.  A group's heads
+  // are consecutive in b·H + h from its first pair's.
+  const int n_qb = (Sq + BM - 1) / BM;
+  const int n_groups = (B * KV + group - 1) / group;
+  const int small = B * KV / n_groups;  // pairs in a smaller group
+  const int n_big = B * KV % n_groups;  // groups of small + 1 pairs, first
+  const int bid = blockIdx.x;
+  const bool big = bid < n_big * (small + 1) * (H / KV) * n_qb;
+  const int pairs = big ? small + 1 : small;          // in this block's group
+  const int in_group = pairs * (H / KV) * n_qb;       // its blocks
+  const int rest = big ? bid : bid - n_big * (small + 1) * (H / KV) * n_qb;
+  const int first = (big ? 0 : n_big * (small + 1)) + rest / in_group * pairs;  // its first pair
+  const int r = rest % in_group;
+  const int heads = pairs * (H / KV);
+  const int qb = n_qb - 1 - r / heads;
+  const int bh = first * (H / KV) + r % heads;
+  const int b = bh / H;
+  const int h = bh % H;
   const int kvh = h / (H / KV);
-  const int qb = gridDim.y - 1 - blockIdx.y;  // heaviest causal block first
   const int q0 = qb * BM;
   // Tiles kt0 .. kt0 + n_tiles − 1; the ring's stage and phase count from kt0.
   const int all_tiles = (Sk + BN - 1) / BN;
@@ -468,7 +530,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
 
   if (threadIdx.x == 0) {
     mbar_init(full_q, 1);
-    for (int st = 0; st < 2; ++st) {
+    for (int st = 0; st < STAGES; ++st) {
       mbar_init(full_k(st), 1);
       mbar_init(full_v(st), 1);
       mbar_init(empty(st), 4 * NC);  // one arrival per consumer warp
@@ -486,8 +548,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
       mbar_expect_tx(full_q, Tq::BYTES);
       load_tile<Tq>(q_tile, &tq, &tq16, full_q, h, q0, b);
       for (int i = 0; i < n_tiles; ++i) {
-        const int st = i & 1;
-        if (i >= 2) mbar_wait(empty(st), ((i >> 1) - 1) & 1);
+        const int st = i % STAGES;
+        if (i >= STAGES) mbar_wait(empty(st), (i / STAGES - 1) & 1);
         mbar_expect_tx(full_k(st), Tkv::BYTES);
         load_tile<Tkv>(k_tile(st), &tk, &tk16, full_k(st), kvh, (kt0 + i) * BN, b);
         mbar_expect_tx(full_v(st), Tkv::BYTES);
@@ -521,6 +583,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
     auto my_turn = [&] { if constexpr (Shape<HD>::NC == 2) named_sync(1 + w); };
     auto your_turn = [&] { if constexpr (Shape<HD>::NC == 2) named_arrive(2 - w); };
 
+    bool late = false;  // a full barrier never completed (see mbar_wait)
     Consumer<HD> c;
     c.m[0] = c.m[1] = NEG;
     c.l[0] = c.l[1] = 0.f;
@@ -537,8 +600,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
       if (w == 1) named_arrive(1);
     }
 
-    mbar_wait(full_q, 0);
-    mbar_wait(full_k(0), 0);
+    mbar_wait(full_q, 0, late);
+    mbar_wait(full_k(0), 0, late);
     my_turn();
     wgmma_fence();
     c.issue_s(q64, q16, k_tile(0));
@@ -551,14 +614,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
 
     for (int i = 1; i < n_tiles; ++i) {
       const int kt = kt0 + i;
-      const int st = i & 1, prev = st ^ 1;
-      mbar_wait(full_k(st), (i >> 1) & 1);
+      const int st = i % STAGES, prev = (i - 1) % STAGES;
+      mbar_wait(full_k(st), (i / STAGES) & 1, late);
       c.rescale_o();  // by the previous tile's factor, before its P·V lands
       my_turn();
       wgmma_fence();
       c.issue_s(q64, q16, k_tile(st));
       wgmma_commit();
-      mbar_wait(full_v(prev), ((i - 1) >> 1) & 1);
+      mbar_wait(full_v(prev), ((i - 1) / STAGES) & 1, late);
       c.issue_pv(v_tile(prev));
       wgmma_commit();
       your_turn();
@@ -574,10 +637,10 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
 
     const int last = n_tiles - 1;
     c.rescale_o();
-    mbar_wait(full_v(last & 1), (last >> 1) & 1);
+    mbar_wait(full_v(last % STAGES), (last / STAGES) & 1, late);
     my_turn();
     wgmma_fence();
-    c.issue_pv(v_tile(last & 1));
+    c.issue_pv(v_tile(last % STAGES));
     wgmma_commit();
     your_turn();
     wgmma_wait<0>();
@@ -593,7 +656,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
       c.l[r] += __shfl_xor_sync(0xffffffffu, c.l[r], 2);
       const int row = row0 + 8 * r;
       if (row >= Sq) continue;
-      const float denom = fmaxf(c.l[r], 1e-30f);
+      const float denom = late ? CUDART_NAN_F : fmaxf(c.l[r], 1e-30f);
       __nv_bfloat16* orow = o + ((static_cast<long long>(b) * Sq + row) * H + h) * HD;
 #pragma unroll
       for (int rr = 0; rr < Tq::N64; ++rr)
@@ -650,7 +713,7 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int 
 
 template <int HD, bool SPAN>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk, int H, int KV,
-           float scale, int causal, int q_offset, int window, cudaStream_t stream) {
+           int group, float scale, int causal, int q_offset, int window, cudaStream_t stream) {
   using S = Shape<HD>;
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
@@ -673,10 +736,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_sm90_kernel<HD, SPAN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * H, (Sq + S::BM - 1) / S::BM);
-  flash_fwd_sm90_kernel<HD, SPAN><<<grid, S::THREADS, smem, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], static_cast<__nv_bfloat16*>(o), Sq, Sk, H, KV,
-      scale * 1.4426950408889634f, causal, q_offset, window);
+  const long long blocks = static_cast<long long>(B) * H * ((Sq + S::BM - 1) / S::BM);
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  flash_fwd_sm90_kernel<HD, SPAN><<<static_cast<unsigned>(blocks), S::THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], static_cast<__nv_bfloat16*>(o), B, Sq, Sk, H, KV,
+      group, scale * 1.4426950408889634f, causal, q_offset, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -684,22 +748,25 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
 
 // Launches one bf16 forward pass on `stream`.  q, o: (B, Sq, H, hd); k, v:
 // (B, Sk, KV, hd); all contiguous and 16-byte aligned; KV divides H; Sk ≥ 1;
-// ceil(Sq / rows) ≤ 65535 (128 rows a block, 64 at hd > 128).  scale is the
+// B·H·ceil(Sq / rows) < 2^31 (128 rows a block, 64 at hd > 128).  scale is the
 // reference's 1/√hd of the true head dim, rounded to fp32; q_offset is row
 // 0's position and window the sliding window (INT_MAX for none), both of the
-// causal mask.  Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for an hd that is not an instance or a tensor TMA
-// cannot map, cudaErrorNotSupported without libcuda's tensor-map encoder).
+// causal mask; group the (b, kv head) pairs per group of the block order,
+// 1 to B·KV.  Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for an hd that is not an instance, a group out of
+// range or a tensor TMA cannot map, cudaErrorNotSupported without libcuda's
+// tensor-map encoder).
 extern "C" int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
                               int H, int KV, int hd, float scale, int causal, int q_offset, int window,
-                              void* stream) {
+                              int group, void* stream) {
   if (B <= 0 || Sq <= 0) return 0;
+  if (group < 1 || group > B * KV) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool span = causal && (q_offset != 0 || window != 0x7fffffff);
-#define FLASH_SM90_CASE(HD)                                                                           \
-  case HD:                                                                                            \
-    return span ? launch<HD, true>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, q_offset, window, s) \
-                : launch<HD, false>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, q_offset, window, s);
+#define FLASH_SM90_CASE(HD)                                                                         \
+  case HD:                                                                                          \
+    return span ? launch<HD, true>(q, k, v, o, B, Sq, Sk, H, KV, group, scale, causal, q_offset, window, s) \
+                : launch<HD, false>(q, k, v, o, B, Sq, Sk, H, KV, group, scale, causal, q_offset, window, s);
   switch (hd) {
     FLASH_SM90_CASE(16)
     FLASH_SM90_CASE(64)

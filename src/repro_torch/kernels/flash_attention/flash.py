@@ -24,11 +24,14 @@ product, and ``acc / max(l, 1e-30)`` cast to q's dtype.
 
   - ``"wgmma"`` (bf16, the model path): ``csrc/flash_fwd_sm90.cu``, on the
     H100's tensor cores.  A producer warpgroup copies Q, K and V by TMA
-    from their native layouts into a 2-stage shared-memory ring; two
-    consumer warpgroups (one above hd 128, where O alone takes 96 or 128
-    registers a thread) run Q·Kᵀ and P·V as ``wgmma`` (bf16 in, fp32
-    accumulate; P taken from registers) and the online softmax on the
-    accumulators.  Its bound on the H100 is the tensor cores' bf16 rate
+    from their native layouts into a 3-stage shared-memory ring of
+    128-key tiles; two consumer warpgroups (one above hd 128, where O
+    alone takes 96 or 128 registers a thread, with 64-key tiles) run Q·Kᵀ
+    and P·V as ``wgmma`` (bf16 in, fp32 accumulate; P taken from
+    registers) and the online softmax on the accumulators.  Its blocks run
+    in groups of (batch, kv head) pairs whose K and V fit ``L2_SHARE`` of
+    the card's L2 (:func:`kv_group`), each group's heaviest causal query
+    blocks first.  Its bound on the H100 is the tensor cores' bf16 rate
     (1,070 TFLOP/s at 1,980 MHz) for the 4·hd FLOPs and the MUFU rate
     (4.18·10¹² /s) for the exp of each visible (q, k) pair, equal at
     hd 64 (0.514 ms each at TinyLlama's 8 × 4,096 causal prefill) and far
@@ -84,7 +87,7 @@ from repro_torch.kernels import _build, refuse_grad
 
 __all__ = ["NEG", "MAX_HEAD_DIM", "INSTANCES", "ROUTES", "SOURCE", "SOURCE_SM90", "build", "expand_kv",
            "flash_fwd", "flash_attention", "flash_attention_grad", "flash_attention_backward_plain",
-           "flash_attention_plain", "instance", "route", "visible_pairs"]
+           "flash_attention_plain", "instance", "kv_group", "route", "visible_pairs"]
 
 NEG = -1e30  # large-finite: no inf − inf in the online softmax
 MAX_HEAD_DIM = 256
@@ -97,6 +100,10 @@ INSTANCES = {"wgmma": (16, 64, 80, 128, 192, 256),
              "ffma": (16, 32, 48, 64, 80, 96, 128, 160, 192, 256)}
 _MAX_GRID_Y = 65535
 _INT_MAX = 2 ** 31 - 1
+# The share of the card's L2 that one group of the wgmma kernel's block
+# order may fill with its K and V (:func:`kv_group`); the rest holds the
+# streamed Q and O tiles.
+L2_SHARE = 0.5
 
 _lib: ctypes.CDLL | None = None
 
@@ -109,7 +116,7 @@ def build() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, f, i, i, i, p]
         lib.flash_fwd.restype = i
-        lib.flash_fwd_sm90.argtypes = [p, p, p, p, i, i, i, i, i, i, f, i, i, i, p]
+        lib.flash_fwd_sm90.argtypes = [p, p, p, p, i, i, i, i, i, i, f, i, i, i, i, p]
         lib.flash_fwd_sm90.restype = i
         _lib = lib
     return _lib
@@ -162,11 +169,24 @@ def _check(q, k, v, out) -> None:
     which = route(q.dtype, hd)
     if which == "ffma" and b * h > _MAX_GRID_Y:
         raise ValueError(f"B·H = {b * h} exceeds the grid's {_MAX_GRID_Y}")
-    if which == "wgmma" and -(-q.shape[1] // _block_rows(which, hd)) > _MAX_GRID_Y:
-        raise ValueError(f"Sq = {q.shape[1]} exceeds the grid's {_MAX_GRID_Y} query blocks")
+    if which == "wgmma" and b * h * -(-q.shape[1] // _block_rows(which, hd)) > _INT_MAX:
+        raise ValueError(f"B·H·ceil(Sq / {_block_rows(which, hd)}) exceeds the grid's {_INT_MAX} blocks")
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def kv_group(b: int, sk: int, kv: int, hd: int, l2_bytes: int) -> int:
+    """The most (batch, kv head) pairs a group of the wgmma kernel's block
+    order holds: as many as keep the group's K and V (bf16, ``sk`` keys of
+    ``hd`` columns each, ``hd`` the instance's) within ``L2_SHARE`` of an L2
+    of ``l2_bytes``, at least 1 and at most all ``b·kv``.  The kernel splits
+    the pairs into ceil(b·kv / group) groups whose sizes differ by one at
+    most.  A group's blocks run together, heaviest causal query block
+    first, so every head of the group re-reads its K and V from L2 while
+    the group runs."""
+    per_pair = 2 * sk * hd * 2
+    return max(1, min(b * kv, int(l2_bytes * L2_SHARE) // per_pair))
 
 
 def _mask_args(causal: bool, q_offset, window, sq: int, sk: int) -> tuple[int, int]:
@@ -210,8 +230,12 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tens
     shape = (b, sq, k.shape[1], h, k.shape[2], inst, 1.0 / (hd ** 0.5), int(causal), q_offset, window)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        fn = lib.flash_fwd_sm90 if which == "wgmma" else lib.flash_fwd
-        err = fn(*args, *shape, stream)
+        if which == "wgmma":
+            l2 = torch.cuda.get_device_properties(q.device).L2_cache_size
+            group = kv_group(b, k.shape[1], k.shape[2], inst, l2)
+            err = lib.flash_fwd_sm90(*args, *shape, group, stream)
+        else:
+            err = lib.flash_fwd(*args, *shape, stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd ({which}) launch failed: CUDA error {err}")
     flash_fwd.launches += 1

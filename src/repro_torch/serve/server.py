@@ -258,8 +258,8 @@ class ProHDService:
             reg.counter("serve.pairwise_requests.total").inc(sum(len(v) for v in by_bucket.values()))
             reg.counter("serve.search_requests.total").inc(len(searches))
 
-        backend = resolver.resolve_masked_backend(self.device.type)
         for (n_a, n_b, d), reqs in by_bucket.items():
+            backend = resolver.resolve_masked_backend(n_a, n_b, d, device_kind=self.device.type)
             m = projections.default_num_directions(d)
             for i in range(0, len(reqs), self.cfg.max_batch):
                 chunk = reqs[i : i + self.cfg.max_batch]

@@ -233,12 +233,37 @@ def _load_script(name: str, rel: str):
 
 
 def test_planted_faults_each_hit_the_kernel_source_once():
+    """Each fault text occurs once in the source; the block-order fault also
+    runs at a case of chip_smoke's phase 13, which spans several groups."""
     faults = _load_script("flash_planted_faults", "scripts/flash_planted_faults.py")
+    smoke = _load_script("chip_smoke", "chip_smoke.py")
     text = F.SOURCE_SM90.read_text()
-    assert len(faults.FAULTS) == 7
+    assert len(faults.FAULTS) == 8
     assert faults.CAUSAL_ONLY <= set(faults.FAULTS)
     for name, (old, new) in faults.FAULTS.items():
         assert text.count(old) == 1 and new != old, name
+    assert set(faults.ORDER_FAULTS) <= set(faults.FAULTS)
+    assert faults.ORDER_CASE in smoke.FLASH_CASES
+    b, _, sk, _, kv, hd, dtype, _ = faults.ORDER_CASE
+    assert dtype == "bfloat16" and b * kv % F.kv_group(b, sk, kv, hd, 50 * 2 ** 20) != 0  # groups of two sizes
+
+
+def test_lever_variants_each_hit_the_kernel_source_once():
+    """scripts/flash_levers.py undoes one design choice per variant: each of
+    its texts occurs once in the source and changes it."""
+    levers = _load_script("flash_levers", "scripts/flash_levers.py")
+    text = F.SOURCE_SM90.read_text()
+    assert set(levers.VARIANTS) == {"two_stages", "key_tiles_64", "trap_in_consumers"}
+    for name, reps in levers.VARIANTS.items():
+        for old, new in reps:
+            assert text.count(old) == 1 and new != old, name
+
+
+def test_parent_ab_script_finds_the_group_in_this_entry_point():
+    """scripts/flash_parent_ab.py loads, and the text by which it tells an
+    entry point that takes the block order's group stands in this source."""
+    _load_script("flash_parent_ab", "scripts/flash_parent_ab.py")
+    assert F.SOURCE_SM90.read_text().count("int group, void* stream") == 1
 
 
 def test_span_faults_each_hit_the_offset_and_window_instance_once():
@@ -276,7 +301,7 @@ def _tensor_core_arithmetic(q, k, v, causal, tile, *, q_offset=0, window=None, b
     """The wgmma kernel's arithmetic, emulated: scores as fp32 sums of the
     exact bf16 products in another order (float64, rounded once), per query
     block of ``block`` rows only the key tiles of ``tile`` keys (128; 64 at
-    hd > 80) that ``key_tiles`` walks, the running max in log2 units with the
+    hd > 128) that ``key_tiles`` walks, the running max in log2 units with the
     scale and log2(e) folded into one multiply-add ahead of exp2, hidden keys
     at MASKED with an offset or a window (−inf without), keys past Sk at
     −inf, l over the fp32 p, p rounded to bf16 against the tile's own
@@ -313,7 +338,7 @@ def _tensor_core_arithmetic(q, k, v, causal, tile, *, q_offset=0, window=None, b
     return out.transpose(1, 2).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("hd,tile", [(64, 128), (128, 64)], ids=["hd64", "hd128"])
+@pytest.mark.parametrize("hd,tile", [(64, 128), (128, 128)], ids=["hd64", "hd128"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_smoke_tolerance_takes_the_tensor_core_arithmetic(causal, hd, tile):
     """chip_smoke's per-entry bf16 bound holds the wgmma kernel's arithmetic
@@ -451,3 +476,79 @@ def test_smoke_tolerance_takes_the_windowed_tensor_core_arithmetic(hd, tile, blo
     assert smoke.flash_error(got, want, abs_v)["max_ratio"] <= 1
     want64 = F.flash_attention_plain(q.double(), k.double(), v.double(), chunk=sk, q_offset=off, window=window)
     assert smoke.flash_error(got, want64, abs_v, exact=True)["max_ratio"] <= 1
+
+
+# --- the block order of the wgmma kernel -------------------------------------
+
+
+def _block_order(i, b, h, kv, n_qb, group):
+    """csrc/flash_fwd_sm90.cu's map of the linear block index ``i`` to (batch,
+    query head, query block): the b·kv (batch, kv head) pairs in
+    ceil(b·kv / group) groups of at most ``group``, the first b·kv % n_groups
+    of them one pair larger, each with all its query heads; within a group
+    the heaviest causal query block of every head first."""
+    g_heads = h // kv
+    n_groups = -(-b * kv // group)
+    small, n_big = divmod(b * kv, n_groups)
+    big = i < n_big * (small + 1) * g_heads * n_qb
+    pairs = small + 1 if big else small
+    in_group = pairs * g_heads * n_qb
+    rest = i if big else i - n_big * (small + 1) * g_heads * n_qb
+    first = (0 if big else n_big * (small + 1)) + rest // in_group * pairs
+    r = rest % in_group
+    heads = pairs * g_heads
+    qb = n_qb - 1 - r // heads
+    bh = first * g_heads + r % heads
+    return bh // h, bh % h, qb
+
+
+L2 = 50 * 2 ** 20  # the H100's L2
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,l2", [
+    (2, 4000, 4000, 13, 13, 128, L2),  # MHA, groups of 9, 9 and 8 (phase 13's case)
+    (8, 4096, 4096, 16, 16, 128, L2),  # OLMoE-1B-7B's heads: 128 pairs in 11 groups of 11-12
+    (8, 4096, 4096, 48, 8, 128, L2),  # Grok-1's: GQA 6, 64 pairs
+    (1, 8192, 8192, 64, 8, 128, L2),  # DeepSeek-67B's: 8 pairs of 4 MiB, groups of 4
+    (3, 333, 333, 10, 5, 64, 800_000),  # a small L2: 15 pairs in groups of 4, 4, 4, 3; Sq ragged
+    (2, 129, 70_000, 4, 1, 256, L2),  # one pair's K and V (72 MB) past the share: groups of 1
+    (1, 1, 1000, 8, 4, 80, L2),  # one query row, one query block
+    (1, 300, 300, 4, 4, 16, 1),  # no L2 to speak of: a pair to a group
+], ids=str)
+def test_block_order_is_a_bijection_heaviest_first_within_l2_groups(b, sq, sk, h, kv, hd, l2):
+    """The kernel's block order over ragged grids: every (batch, head, query
+    block) once; within a group every head's heaviest causal block first;
+    a group holds whole kv heads (GQA query heads stay with theirs) whose K
+    and V fit ``flash.L2_SHARE`` of the L2, or a single (batch, kv head)."""
+    inst = F.instance("wgmma", hd)
+    n_qb = -(-sq // F._block_rows("wgmma", hd))
+    group = F.kv_group(b, sk, kv, inst, l2)
+    assert 1 <= group <= b * kv
+    per_pair = 2 * sk * inst * 2
+    assert group == 1 or group * per_pair <= F.L2_SHARE * l2
+    assert group == b * kv or (group + 1) * per_pair > F.L2_SHARE * l2  # as many as fit
+    n = b * h * n_qb
+    order = [_block_order(i, b, h, kv, n_qb, group) for i in range(n)]
+    assert sorted(order) == [(bb, hh, qq) for bb in range(b) for hh in range(h) for qq in range(n_qb)]
+    # a group starts where the query block jumps back up to the heaviest
+    starts = [i for i in range(n) if i == 0 or order[i][2] > order[i - 1][2]]
+    sizes = []
+    for g0, g1 in zip(starts, [*starts[1:], n]):
+        blocks = order[g0:g1]
+        pairs = {(bb, hh // (h // kv)) for bb, hh, _ in blocks}
+        assert len(blocks) == len(pairs) * (h // kv) * n_qb  # whole kv heads, every query head
+        qbs = [qq for _, _, qq in blocks]
+        assert qbs == sorted(qbs, reverse=True)  # heaviest first
+        sizes.append(len(pairs))
+    if n_qb > 1:  # one query block leaves no jump to find a group by
+        assert len(sizes) == -(-b * kv // group)
+        assert max(sizes) <= group and max(sizes) - min(sizes) <= 1  # within the share, balanced
+
+
+def test_kv_group_reads_the_share_and_clamps():
+    """``flash.kv_group``: (batch, kv head) pairs whose K and V (bf16) fit
+    the L2 share, at least one, at most all."""
+    assert F.kv_group(8, 4096, 16, 128, L2) == int(F.L2_SHARE * L2) // (2 * 4096 * 128 * 2) == 12
+    assert F.kv_group(1, 8192, 8, 128, L2) == 6
+    assert F.kv_group(2, 10, 2, 64, L2) == 4  # everything fits: one group, the flat order
+    assert F.kv_group(1, 10 ** 6, 4, 256, L2) == 1

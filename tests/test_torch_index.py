@@ -270,13 +270,13 @@ def test_masked_backend_ladder_per_device(device_kind, first, ladder):
     """On the card the ladder is the kernel alone (no plain version takes
     over a CUDA search); on the CPU the plain versions follow in order and
     no kernel's backend (``*_cuda``) joins a ladder it does not lead."""
-    first = first or resolver.resolve_masked_backend(device_kind)
+    first = first or resolver.resolve_masked_backend(1, 64, 256, device_kind=device_kind)
     assert cascade.masked_backend_ladder(first, device_kind) == ladder
 
 
 @pytest.mark.parametrize("budget, cap", [(None, 40), (7, 7), (40, 40), (100, 40), (0, 0)])
 def test_anytime_refine_cap_clamps_the_budget(budget, cap):
-    assert resolver.resolve_anytime_refine_cap(40, budget) == cap
+    assert resolver.resolve_anytime_refine_cap(40, 10, budget) == cap
 
 
 def test_search_spans_events_and_stats_reach_the_registry(corpus):

@@ -187,7 +187,7 @@ def test_anytime_eps0_is_exact_and_eps_gives_certified_recall(corpus):
 def test_masked_backend_ladder(first, device_kind, ladder):
     """On the card the ladder is kernel 3 alone; on the CPU the plain
     versions follow, never another kernel's backend."""
-    first = first or resolver.resolve_multiquery_backend(device_kind)
+    first = first or resolver.resolve_multiquery_backend(4, 64, 256, device_kind=device_kind)
     assert cascade.masked_backend_ladder(first, device_kind) == ladder
 
 

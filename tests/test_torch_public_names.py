@@ -101,6 +101,31 @@ def test_default_device_kind(monkeypatch):
     assert res.meta.backend == "tiled"
 
 
+@pytest.mark.parametrize("name", ["resolve_masked_backend", "resolve_multiquery_backend"])
+@pytest.mark.parametrize("args", [(1, 64, 256), (16, 0, 8)], ids=str)
+def test_masked_resolvers_take_the_reference_call_forms(name, args):
+    """The reference's call forms, ``(n_q | q_batch, cap, d, *,
+    device_kind)``, on both packages: the same parameters, and the same
+    answer on the CPU; on the card the port names its kernel where the
+    reference names its Pallas kernel on the TPU (the shape is unused by
+    both)."""
+    ours, ref = getattr(resolver, name), getattr(ref_resolver, name)
+    assert list(inspect.signature(ours).parameters) == list(inspect.signature(ref).parameters)
+    assert ours(*args, device_kind="cpu") == ref(*args, device_kind="cpu") == ours(*args)
+    assert ours(*args, device_kind="cuda") == ref(*args, device_kind="tpu").replace("_pallas", "_cuda")
+    with pytest.raises(TypeError):
+        ours(*args, "cuda")  # device_kind is keyword-only, as in the reference
+
+
+@pytest.mark.parametrize("n_sets,k,budget", [(100, 10, None), (100, 10, 7), (100, 10, 250), (40, 3, 0),
+                                             (40, 3, -2)], ids=str)
+def test_anytime_refine_cap_takes_the_reference_call_form(n_sets, k, budget):
+    assert (list(inspect.signature(resolver.resolve_anytime_refine_cap).parameters)
+            == list(inspect.signature(ref_resolver.resolve_anytime_refine_cap).parameters))
+    assert (resolver.resolve_anytime_refine_cap(n_sets, k, budget)
+            == ref_resolver.resolve_anytime_refine_cap(n_sets, k, budget))
+
+
 def test_core_reexports_the_reference_substrate():
     ref_names = set(ref_core.__all__) - SHIMS
     assert set(core.__all__) == ref_names | DISTRIBUTED
