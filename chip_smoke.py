@@ -153,7 +153,8 @@ the seed):
      4,096, MHA at hd 128 over three groups of the L2-aware block order
      (2 × 13 heads at 4,000, groups of 9, 9 and 8); every other head dim
      kind: 16, 192 and 256 (instances), 3, 40 and 96 (zero-padded to the
-     next instance); sliding windows inside one
+     next instance), and on the fp32 route every instance from 16 to 256
+     (150 padded to 160); sliding windows inside one
      key tile, across several and past Sk; query offsets of a continued
      prefill, past the keys, and with rows that see no key at all), and
      against the plain version at kv chunks 64 and 512, per entry within
@@ -168,8 +169,14 @@ the seed):
      a 64-token prompt fed one token at a time (its last logits against
      prefill_step's on the same prompt), then 32 greedy tokens; a 1 ×
      32,768 prefill with a 4,096-token sliding window (22 launches on the
-     bf16 route); then smoke_lm_config(TinyLlama) (2 layers, 4/2 heads of
-     16, fp32) at 2 × 512 through the fp32 route (2 launches), its logits
+     bf16 route); TinyLlama in fp32 (LMConfig.dtype, the same weights, full
+     width and depth): 1 × 512 within 1e-4 relative L2 of the float64
+     logits above, one counted 8 × 4,096 prefill (22 launches on the fp32
+     route; wall time, tokens/s, peak memory, and kernel 4's share from
+     phase 15's time at its shape) and one more (uncounted) 1 × 4,096
+     prefill with every kernel-4 call held entry by entry against the plain
+     version; then smoke_lm_config(TinyLlama) (2 layers, 4/2 heads of 16,
+     fp32) at 2 × 512 through the fp32 route (2 launches), its logits
      within 1e-4 relative L2 of the same model in float64;
   14b. MoE: OLMoE-1B-7B at full width and depth (16 layers, d 2,048, 16/16
      heads of 128, 64 experts of d_ff 1,024, top 8, vocab 50,304, bf16,
@@ -193,11 +200,13 @@ the seed):
      StableLM-3B's 32/32 heads of 80 and DeepSeek-67B's 64/8 of 128, at
      OLMoE-1B-7B's (8, 4,096) with 16/16 heads of 128 and Grok-1's 48/8
      of 128 at the same shape, causal bf16, then TinyLlama's (1, 32,768) with a 4,096 window (against the
-     causal call) and the smoke configs' heads (8, 4,096, 4/2 of 16, fp32),
-     with its bound, its plain version and scaled_dot_product_attention as
-     a yardstick (flash backend, causal; for the two new shapes the
-     memory-efficient backend with an explicit (S, S) mask, and for the
-     causal fp32 one also that backend's own causal mask, is_causal).
+     causal call), and on the fp32 route at (8, 4,096) with the smoke
+     configs' heads (4/2 of 16), TinyLlama's (32/4 of 64) and OLMoE-1B-7B's
+     (16/16 of 128), each with its bound, its plain version and
+     scaled_dot_product_attention as a yardstick (flash backend, causal;
+     for the windowed and the fp32 shapes the memory-efficient backend with
+     an explicit (S, S) mask, and for the causal fp32 ones also that
+     backend's own causal mask, is_causal, kv heads expanded).
 
 Training (TinyLlama-1.1B, random bf16 weights from the seed):
   16. kernel 4 under autograd: flash.flash_attention_grad (kernel 4's
@@ -402,7 +411,9 @@ DECODE_NEW = 32
 # that see no key at all).  bf16 goes through the tensor-core kernel
 # (128-row query blocks and 128-key tiles, 64 and 64 at hd > 128; blocks
 # in the L2-aware order of flash.kv_group's groups), fp32 through the
-# CUDA-core one (64 and 64).
+# CUDA-core one (64-row blocks of four 16-row warps; 64-key tiles up to
+# hd 64, 32 above; at hd 16 P·V split by keys with p in registers), whose
+# every instance (16 … 256) some fp32 case below runs.
 FLASH_CASES = (
     (2, 128, 128, 4, 4, 64, "float32", True),
     (2, 128, 128, 4, 4, 64, "float32", False),
@@ -443,6 +454,10 @@ FLASH_CASES = (
     (1, 129, 255, 4, 4, 256, "bfloat16", False),
     (1, 257, 257, 4, 1, 192, "bfloat16", True),
     (1, 100, 100, 2, 1, 3, "bfloat16", True),
+    (1, 200, 130, 4, 2, 32, "float32", True),  # Sk ragged below Sq
+    (1, 257, 257, 4, 1, 192, "float32", True),
+    (1, 130, 200, 2, 1, 150, "float32", False),  # padded to 160
+    (1, 300, 333, 4, 2, 16, "float32", False),
     # Sliding windows: inside one key tile, across several, past Sk.
     (1, 1024, 1024, 8, 2, 64, "bfloat16", True, 0, 50),
     (1, 1024, 1024, 8, 2, 64, "float32", True, 0, 50),
@@ -459,13 +474,15 @@ FLASH_CASES = (
     (1, 200, 1000, 8, 4, 64, "float32", True, 1500, None),
     (1, 200, 1000, 8, 2, 64, "bfloat16", True, 1100, 150),
     (1, 200, 1000, 8, 2, 64, "float32", True, 1100, 150),
+    (1, 200, 1000, 4, 2, 16, "float32", True, 1100, 150),
 )
 # Phase 15's timed shapes (B, S, H, KV, hd, dtype, window), causal:
 # TinyLlama's first, then StableLM-3B's, DeepSeek-67B's and OLMoE-1B-7B's
 # heads (MHA, 16 of 128, at its prefill shape 8 × 4,096), Grok-1's (48/8
 # of 128) at the same shape (K and V 128 MiB, past the L2), then
-# TinyLlama at 32,768 with a 4,096 window and the smoke configs' heads (4/2
-# of 16, fp32 as the smoke configs run).
+# TinyLlama at 32,768 with a 4,096 window; then the fp32 route: the smoke
+# configs' heads (4/2 of 16, fp32 as the smoke configs run), TinyLlama's
+# (the fp32 prefill of phase 14) and OLMoE-1B-7B's at 8 × 4,096.
 FLASH_TIMES = (
     (8, 4_096, 32, 4, 64, "bfloat16", None),
     (1, 32_768, 32, 4, 64, "bfloat16", None),
@@ -475,6 +492,8 @@ FLASH_TIMES = (
     (8, 4_096, 48, 8, 128, "bfloat16", None),
     (1, 32_768, 32, 4, 64, "bfloat16", 4_096),
     (8, 4_096, 4, 2, 16, "float32", None),
+    (8, 4_096, 32, 4, 64, "float32", None),
+    (8, 4_096, 16, 16, 128, "float32", None),
 )
 # Phase 14's windowed prefill: TinyLlama with this sliding window at 1 × 32,768.
 LM_WINDOW = 4_096
@@ -2844,7 +2863,18 @@ def phase_lm(seed: int) -> dict:
                                                                           chunk=cfg.attn_chunk, **mask)):
         logits64 = T.prefill_step(model64, prompt, cfg64)
     del model64
+    # The same weights in fp32 (LMConfig.dtype; bf16 is exact in fp32), every
+    # layer's attention on kernel 4's fp32 route: 1 × 512 against the same
+    # float64 logits, uncounted.
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model32 = T.TransformerLM(cfg32, device=DEVICE)
+    model32.load_state_dict(model.state_dict())
+    with uncounted():
+        logits32 = T.prefill_step(model32, prompt, cfg32)
+    del model32
     torch.cuda.empty_cache()
+    err32 = rel_l2(logits32, logits64)
+    assert bool(torch.isfinite(logits32).all()) and err32 <= FP32_LOGIT_TOL, ("fp32 prefill vs float64", err32)
     tol = bf16_logit_tolerance(cfg.n_layers)
     err = rel_l2(logits, logits64)
     assert err <= tol, ("bf16 vs float64 prefill", err, tol)
@@ -2921,7 +2951,32 @@ def phase_lm(seed: int) -> dict:
     out["windowed_prefill"] = {"batch": b, "seq": s, "window": LM_WINDOW, "wall_s": dt,
                                "tokens_per_s": b * s / dt, "launches": n}
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # TinyLlama in fp32 at full width and depth: one counted prefill at the
+    # first cut shape (22 launches of the "ffma" route), then 1 × 4,096
+    # uncounted with every kernel-4 call held to the plain version.
+    model32 = T.TransformerLM(cfg32, device=DEVICE)
+    model32.load_state_dict(model.state_dict())
     del model, tokens, logits
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    b, s = PREFILL_SHAPES[0]
+    tokens = synth.lm_batch(gen, cfg32, b, s)["tokens"][:, :s]
+    logits, dt, n = timed_prefill(model32, tokens, cfg32)
+    out["launches"] += n
+    out["route_launches"]["ffma"] += n
+    out["fp32"] = {"config": f"{LM_ARCH} dtype=float32", "float64": {"tokens": F64_PROMPT, "rel_l2": err32,
+                                                                    "tol": FP32_LOGIT_TOL},
+                   "launches": n, "prefill": {"batch": b, "seq": s, "wall_s": dt, "tokens_per_s": b * s / dt,
+                                              "peak_gb": torch.cuda.max_memory_allocated() / 1e9}}
+    del tokens, logits
+    torch.cuda.empty_cache()
+    tokens = synth.lm_batch(gen, cfg32, 1, s)["tokens"][:, :s]
+    with flash_held(cfg32.attn_chunk) as held32:
+        again = T.prefill_step(model32, tokens, cfg32)
+    assert len(held32) == cfg32.n_layers and bool(torch.isfinite(again).all()), len(held32)
+    out["fp32"]["held"] = held_summary(f"fp32 prefill 1 x {s}", held32)
+    del model32, tokens, again
     torch.cuda.empty_cache()
 
     # The smoke config (2 layers, 4/2 heads of 16, fp32): kernel 4's fp32
@@ -4671,9 +4726,10 @@ def main() -> int:
     lm = phase_lm(args.seed)
     # TinyLlama's bf16 prefills (the windowed one included) went through the
     # tensor-core route, the fp32 smoke config's through the FFMA route.
-    smoke_n = lm["smoke"]["launches"]
-    assert smoke_n == 2, lm["smoke"]
-    assert lm["route_launches"] == {"wgmma": lm["launches"] - smoke_n, "ffma": smoke_n}, lm["route_launches"]
+    smoke_n, fp32_n = lm["smoke"]["launches"], lm["fp32"]["launches"]
+    assert smoke_n == 2 and fp32_n == 22, (lm["smoke"], lm["fp32"])
+    assert lm["route_launches"] == {"wgmma": lm["launches"] - smoke_n - fp32_n, "ffma": smoke_n + fp32_n}, \
+        lm["route_launches"]
     emit({"phase": "main_path", "path": "lm_serve", "launches": {"flash_fwd": lm["launches"]},
           "route_launches": lm["route_launches"], "wall_s": time.perf_counter() - t0})
     # Main path 6: MoE LM serving, OLMoE-1B-7B prefill and decode, then Grok-1's
@@ -4686,6 +4742,12 @@ def main() -> int:
     emit({"phase": "main_path", "path": "moe_serve", "launches": {"flash_fwd": moe["launches"]},
           "route_launches": moe["route_launches"], "wall_s": time.perf_counter() - t0})
     rows4 = phase_times_flash(args.seed, env)
+    # Kernel 4's share of the fp32 prefill: its layers' launches at phase 15's
+    # time for the same shape over the prefill's wall time.
+    row64 = next(r for r in rows4 if r["dtype"] == "float32" and r["shape"] == [*PREFILL_SHAPES[0], 32, 4, 64])
+    emit({"phase": "lm_fp32_kernel4_share", "launches": fp32_n, "kernel_ms": row64["ms"],
+          "prefill_wall_s": lm["fp32"]["prefill"]["wall_s"],
+          "share": fp32_n * row64["ms"] / 1e3 / lm["fp32"]["prefill"]["wall_s"]})
     # Phase 16: training.  Kernel 4 under autograd (comparison launches, not
     # counted), then main path 7: TinyLlama-1.1B through fit (counted inside
     # phase_train around the fit call), then the launcher in a subprocess.
@@ -4730,6 +4792,9 @@ def main() -> int:
     def total(name):
         return sum(c[name] for c in (search_launches, batch_launches, shard_launches, serve_launches))
 
+    ffma_launches = sum(p["route_launches"]["ffma"] for p in (lm, moe, train, sharded, sharded_fit))
+    assert ffma_launches == 26, ffma_launches  # two smoke configs' 2 each, the fp32 TinyLlama's 22
+
     emit({"kernels": [
         kernel_entry("fused_minscan", "cuda", KERNEL_SOURCE, TPU_KERNEL,
                      pair_launches + total("fused_minscan") + dist_launches["fused_minscan"]
@@ -4751,9 +4816,7 @@ def main() -> int:
                               + train["route_launches"]["wgmma"] + sharded["route_launches"]["wgmma"]
                               + sharded_fit["route_launches"]["wgmma"]},
                     "ffma": {"dtype": "float32", "source": KERNEL4_FP32_SOURCE, "replaces": TPU_KERNEL4,
-                             "launches": lm["route_launches"]["ffma"] + moe["route_launches"]["ffma"]
-                             + train["route_launches"]["ffma"] + sharded["route_launches"]["ffma"]
-                             + sharded_fit["route_launches"]["ffma"]}}},
+                             "launches": ffma_launches}}},
     ]})
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
     print(smi("name,power.limit"), flush=True)

@@ -34,10 +34,10 @@ warm-up) in turns, parent, this, flat, span, span, flat, this, parent,
 ``--reps`` times, their outputs compared bit for bit (a changed key tile
 changes the summation order, so the parent's may differ in the last bits)
 and each held to the plain version with ``chip_smoke.flash_error``.  At
-the causal fp32 shape the fp32 route (``flash_fwd``, route "ffma") of
-both trees is timed the same way, outputs bitwise, and at the windowed
-shape both trees' instance for offsets and windows, outputs bitwise and
-held to the plain version.
+each causal fp32 shape the fp32 route (``flash_fwd``, route "ffma") of
+both trees is timed the same way, outputs compared bitwise and held to the
+plain version, and at the windowed shape both trees' instance for offsets
+and windows, outputs compared bitwise and held to the plain version.
 
 Then the wrapper, before and after kernel 4 became the custom op
 ``torch.ops.repro_torch.flash_fwd``: ``launcher`` is the earlier wrapper's
@@ -124,7 +124,8 @@ def window_row(parent, parent_group, lib, gen, b, s, h, kv, hd, window) -> None:
 
 def fp32_row(parent, lib, gen, b, s, h, kv, hd) -> None:
     """The fp32 route ("ffma", ``flash_fwd.cu``) of both trees at one causal
-    shape, bare calls in turns, outputs bitwise."""
+    shape, bare calls in turns, outputs compared bitwise and held to the
+    plain version."""
     import torch
 
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -147,10 +148,14 @@ def fp32_row(parent, lib, gen, b, s, h, kv, hd) -> None:
         for name in ("parent", "this", "this", "parent"):
             times[name].append(C.cuda_ms(lambda: bare(name)))
     torch.cuda.synchronize()
+    want = F.flash_attention_plain(q, k, v, causal=True)
+    abs_v = C.weighted_abs_v(q, k, v, causal=True)
+    held = {n: C.flash_error(o, want, abs_v)["max_ratio"] for n, o in outs.items()}
+    assert all(r <= 1 for r in held.values()), held
     med = {k: statistics.median(v) for k, v in times.items()}
     C.emit({"shape": [b, s, h, kv, hd], "dtype": "float32", "route": "ffma", "parent_ms": med["parent"],
             "this_ms": med["this"], "this_over_parent": med["this"] / med["parent"], "runs": times,
-            "bitwise_equal": bool(torch.equal(outs["this"], outs["parent"]))})
+            "bitwise_equal": bool(torch.equal(outs["this"], outs["parent"])), "max_ratio_vs_plain": held})
 
 
 def main() -> int:

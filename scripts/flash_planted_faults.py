@@ -31,6 +31,16 @@ fail the cases it names, pass the others (−inf masking is no fault where
 every row sees a key) and pass TinyLlama's shape, whose instance does not
 hold it.
 
+``FP32_FAULTS`` are planted in copies of ``flash_fwd.cu``, the fp32 route
+(``flash.route`` ``"ffma"``): a middle key tile of each block given no
+weight, no rescale of acc, the wrong kv head, the interior-tile
+classification one tile too far (the diagonal and the ragged Sk tile go
+unmasked), and a ring stage read before its copy is waited for (the tile's
+math reads the stage whose copy was issued last).  They run at every fp32
+case of ``chip_smoke.FLASH_CASES`` (phase 13: windows, offsets, rows that
+see no key, ragged edges, every instance); each must fail every case it
+reaches (:func:`fp32_reaches`) and pass the others.
+
 Every copy and the untouched source are held entry by entry to the plain
 version with ``chip_smoke.flash_error``, the check that phases 13-15 of
 ``chip_smoke.py`` apply; the untouched source must pass every case.  Each
@@ -102,6 +112,106 @@ SPAN_FAULTS = {
                       ("no_key_rows",)),
 }
 
+# variant -> (text in flash_fwd.cu, its replacement); each text occurs once.
+FP32_FAULTS = {
+    "skip_middle_tile": ("if (edge) mask_scores<SM, SN, RGS, KG>(s, k0 + kg, pos_lo + rg, Sk, causal, window);",
+                         "if (edge || i == tiles.count / 2) mask_scores<SM, SN, RGS, KG>(s, k0 + kg, pos_lo + rg, "
+                         "i == tiles.count / 2 ? 0 : Sk, causal, window);"),
+    "no_rescale_acc": ("for (int cc = 0; cc < ON; ++cc) acc[i2][cc] *= f;",
+                       "for (int cc = 0; cc < ON; ++cc) acc[i2][cc] *= 1.f;"),
+    "kv_head_mod": ("const int kvh = h / (H / KV);", "const int kvh = h % KV;"),
+    "interior_one_tile_too_far": ("tile_needs_mask(k0, BK,", "tile_needs_mask(k0 - BK, BK,"),
+    "stage_read_early": ("return ring + (i % STAGES) * T::STAGE;", "return ring + ((i + 1) % STAGES) * T::STAGE;"),
+}
+INT_MAX = 2 ** 31 - 1
+
+
+def fp32_tiles(hd: int) -> tuple[int, int, int]:
+    """(query rows per CTA, rows per warp, keys per tile) of flash_fwd.cu's
+    ``Shape`` at the instance that runs ``hd``."""
+    from repro_torch.kernels.flash_attention import flash as F
+
+    return F._block_rows("ffma", hd), 16, 64 if F.instance("ffma", hd) <= 64 else 32
+
+
+def fp32_cases(cases) -> list:
+    """The fp32 cases of ``chip_smoke.FLASH_CASES``."""
+    return [c for c in cases if c[6] == "float32"]
+
+
+def _walk(case):
+    """(tile count, [(first row's position, last stored row's, k0)]) of
+    every (query block, warp, walked key tile) of ``case``: flash_mask.cuh's
+    ``key_tiles`` per block, its rows in warps."""
+    _, sq, sk, _, _, hd, _, causal, off, win = (*case, 0, None)[:10]
+    win = INT_MAX if win is None else max(win, 0)
+    bq, wr, bk = fp32_tiles(hd)
+    out, most = [], 0
+    for q0 in range(0, sq, bq):
+        p_lo, p_hi = off + q0, off + min(q0 + bq, sq) - 1
+        n = -(-sk // bk)
+        first = 0
+        if causal and not (p_lo < 0 or win <= 0 or p_hi - win + 1 > sk - 1):
+            first = max(0, p_lo - win + 1) // bk
+            n = min(p_hi, sk - 1) // bk - first + 1
+        most = max(most, n)
+        for w0 in range(q0, min(q0 + bq, sq), wr):
+            out += [(off + w0, off + min(w0 + wr, sq) - 1, kt * bk) for kt in range(first, first + n)]
+    return most, out
+
+
+def _needs_mask(k0, bk, p_lo, p_hi, sk, win, causal) -> bool:
+    """flash_mask.cuh's ``tile_needs_mask``."""
+    return k0 + bk > sk or (bool(causal) and (k0 + bk - 1 > p_lo or p_hi - k0 >= win))
+
+
+def fp32_reaches(name: str, case) -> bool:
+    """Whether the fp32 fault ``name`` changes the output of ``case``: the
+    kv head where 1 < KV < H; the rescale where some block walks two tiles
+    or more; the classification where some walked tile that needs the mask
+    is taken as interior one tile back; a dropped middle tile (every walked
+    tile holds a key some row weighs) and an early-read stage everywhere."""
+    _, _, sk, h, kv, hd, _, causal, _, win = (*case, 0, None)[:10]
+    if name == "kv_head_mod":
+        return 1 < kv < h
+    if name in ("skip_middle_tile", "stage_read_early"):
+        return True
+    most, walked = _walk(case)
+    if name == "no_rescale_acc":
+        return most >= 2
+    bk = fp32_tiles(hd)[2]
+    win = INT_MAX if win is None else max(win, 0)
+    return any(_needs_mask(k0, bk, lo, hi, sk, win, causal) and not _needs_mask(k0 - bk, bk, lo, hi, sk, win, causal)
+               for lo, hi, k0 in walked)
+
+
+def build_fp32_variants(tmp: Path) -> dict:
+    """Compile the untouched flash_fwd.cu and each fp32 fault into ``tmp``,
+    all nvcc processes at once; the loaded libraries by variant."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash as F
+
+    text = F.SOURCE.read_text()
+    for header in F.SOURCE.parent.glob("*.cuh"):
+        (tmp / header.name).write_text(header.read_text())
+    jobs = {}
+    for name, (old, new) in {"none": ("", ""), **FP32_FAULTS}.items():
+        if old:
+            assert text.count(old) == 1, (name, text.count(old))
+        src = tmp / f"flash_fwd_{name}.cu"
+        src.write_text(text.replace(old, new) if old else text)
+        jobs[name] = (src, tmp / f"flash_fwd_{name}.so")
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        for f in [pool.submit(_build.compile_library, [src], so) for src, so in jobs.values()]:
+            f.result()
+    ref = F.build().flash_fwd
+    libs = {}
+    for name, (_, so) in jobs.items():
+        lib = ctypes.CDLL(str(so))
+        lib.flash_fwd.argtypes, lib.flash_fwd.restype = ref.argtypes, ref.restype
+        libs[name] = lib
+    return libs
+
 
 def build_variants(tmp: Path) -> dict:
     """Compile the untouched source and each planted fault into ``tmp``,
@@ -146,8 +256,10 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import flash as F
 
     print(C.smi("name,power.limit"), flush=True)
-    with tempfile.TemporaryDirectory() as tmp:
-        libs = build_variants(Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp, tempfile.TemporaryDirectory() as tmp32:
+        with ThreadPoolExecutor(2) as pool:
+            built = pool.submit(build_variants, Path(tmp)), pool.submit(build_fp32_variants, Path(tmp32))
+            libs, libs32 = built[0].result(), built[1].result()
         b, s, h, kv, hd = SHAPE
         gen = make_generator(args.seed + 13, "cuda")
         q = torch.randn((b, s, h, hd), generator=gen, device="cuda").to(torch.bfloat16)
@@ -212,10 +324,30 @@ def main() -> int:
                         "groups": -(-b * kv // group), "passed": passed, "entries": out.numel(), **e})
                 del out
             del q, k, v, want, abs_v
+            for case in fp32_cases(C.FLASH_CASES):
+                b, sq, sk, h, kv, hd, _, causal, off, window = (*case, 0, None)[:10]
+                q = torch.randn((b, sq, h, hd), generator=gen, device="cuda")
+                k = torch.randn((b, sk, kv, hd), generator=gen, device="cuda")
+                v = torch.randn((b, sk, kv, hd), generator=gen, device="cuda")
+                mask = {"q_offset": off, "window": window}
+                want = F.flash_attention_plain(q, k, v, causal=causal, chunk=sk, **mask)
+                abs_v = C.weighted_abs_v(q, k, v, causal=causal, **mask)
+                for name, lib in libs32.items():
+                    out = run(lib, q, k, v, causal=causal, **mask)
+                    e = C.flash_error(out, want, abs_v)
+                    passed = e["max_ratio"] <= 1  # NaN fails
+                    reaches = name != "none" and fp32_reaches(name, case)
+                    verdicts[(name, json.dumps(case))] = passed != reaches
+                    C.emit({"variant": name, "route": "ffma", "case": list(case), "reaches": reaches,
+                            "passed": passed, "entries": out.numel(), **e})
+                    del out
+                del q, k, v, want, abs_v
         finally:
             F._lib = pristine
     ok = all(verdicts.values())
-    C.emit({"planted_faults": len(FAULTS) + len(SPAN_FAULTS), "as_expected": ok,
+    C.emit({"planted_faults": len(FAULTS) + len(SPAN_FAULTS) + len(FP32_FAULTS), "as_expected": ok,
+            "fp32_faults_failing_every_case_they_reach": sorted(
+                n for n in FP32_FAULTS if all(good for (v, _), good in verdicts.items() if v == n)),
             "wrong": [f"{n} {c}" for (n, c), good in verdicts.items() if not good]})
     return 0 if ok else 1
 

@@ -43,4 +43,18 @@ __device__ __forceinline__ KeyTiles key_tiles(int q0, int rows, int Sq, int Sk, 
   return {first, last - first + 1};
 }
 
+// Whether the walked key tile k0 .. k0 + bn − 1 needs a per-element mask
+// for the query rows at positions p_lo .. p_hi (p_lo ≤ p_hi): it does
+// unless it lies wholly below Sk and, under the causal mask, every one of
+// those rows sees every key of it — its last key at or before the first
+// row's position, its first key inside the last row's window.  Both tests
+// are exact (visibility is monotone in the row and the key), so a tile that
+// takes none masks nothing; rows that see no key find every tile masked.
+// Used by flash_fwd.cu (route "ffma") per warp of query rows.
+__device__ __forceinline__ bool tile_needs_mask(int k0, int bn, int p_lo, int p_hi, int Sk, int window,
+                                                int causal) {
+  if (k0 + bn > Sk) return true;
+  return causal && (k0 + bn - 1 > p_lo || p_hi - k0 >= window);
+}
+
 }  // namespace

@@ -39,9 +39,20 @@ product, and ``acc / max(l, 1e-30)`` cast to q's dtype.
     previous P·V and the two take turns on the tensor cores.  A query
     offset or a window runs a second instance per head dim; the plain
     causal instance keeps neither in its code.
-  - ``"ffma"`` (fp32): ``csrc/flash_fwd.cu``, fp32 FFMA on the CUDA cores.
-    Hopper's tensor cores take no fp32 operands, and TF32 would round the
-    operands to 10-bit mantissas, against the reference's fp32 contract.
+  - ``"ffma"`` (fp32): ``csrc/flash_fwd.cu``, IEEE fp32 FFMA on the CUDA
+    cores (Hopper's tensor cores take no fp32 operands, and TF32 would
+    round the operands to 10-bit mantissas, against the reference's fp32
+    contract).  Its bound is the FFMA rate (66.9 TFLOP/s) for the 4·hd
+    FLOPs of each visible (q, k) pair, 8.22 ms at TinyLlama's 8 × 4,096
+    causal prefill, so it spends few other instructions and few
+    shared-memory clocks: each warp owns 16 query rows and exchanges P
+    only within itself; lanes hold register tiles of scores (4 × 8) and
+    outputs, ordered so that neighbouring lanes share the operand read
+    most often; at hd 16 P stays in registers and each lane takes its own
+    keys' share of P·V; K and V come by ``cp.async`` through a 2-stage
+    ring with one CTA barrier a tile; only the key tiles at the diagonal,
+    a window's edge or Sk take a per-element mask; and p is ``ex2`` of one
+    FFMA with the scale folded into log2 units.
 
   ``flash_fwd.launches`` counts every launch and
   ``flash_fwd.route_launches`` each route's.
@@ -143,7 +154,7 @@ def instance(which: str, hd: int) -> int:
 
 def _block_rows(which: str, hd: int) -> int:
     """Query rows per CTA: the wgmma kernel's 128 (64 above hd 128), the
-    ffma kernel's 64."""
+    ffma kernel's 64 (four warps of 16 rows)."""
     return 128 if which == "wgmma" and instance(which, hd) <= 128 else 64
 
 

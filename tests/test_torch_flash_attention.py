@@ -25,6 +25,8 @@ continued prefill with Sk > Sq, and q_offset ≥ Sk, where rows may see no
 key at all) are held to the reference's ``causal_attention`` at the fp32
 tolerance above.
 """
+import itertools
+
 import numpy as np
 import pytest
 
@@ -250,13 +252,17 @@ def test_planted_faults_each_hit_the_kernel_source_once():
 
 def test_lever_variants_each_hit_the_kernel_source_once():
     """scripts/flash_levers.py undoes one design choice per variant: each of
-    its texts occurs once in the source and changes it."""
+    its texts occurs once in its route's source and changes it (the bf16
+    route's ``VARIANTS`` in flash_fwd_sm90.cu, the fp32 route's
+    ``FP32_VARIANTS`` in flash_fwd.cu)."""
     levers = _load_script("flash_levers", "scripts/flash_levers.py")
-    text = F.SOURCE_SM90.read_text()
     assert set(levers.VARIANTS) == {"two_stages", "key_tiles_64", "trap_in_consumers"}
-    for name, reps in levers.VARIANTS.items():
-        for old, new in reps:
-            assert text.count(old) == 1 and new != old, name
+    assert set(levers.FP32_VARIANTS) == {"mask_every_tile", "one_stage", "expf_separate_scale"}
+    for variants, source in ((levers.VARIANTS, F.SOURCE_SM90), (levers.FP32_VARIANTS, F.SOURCE)):
+        text = source.read_text()
+        for name, reps in variants.items():
+            for old, new in reps:
+                assert text.count(old) == 1 and new != old, name
 
 
 def test_parent_ab_script_finds_the_group_in_this_entry_point():
@@ -280,7 +286,30 @@ def test_span_faults_each_hit_the_offset_and_window_instance_once():
         assert q_offset != 0 or window is not None, case
 
 
-MASKED = -(2.0 ** 99)  # the wgmma kernel's masked raw score (flash_fwd_sm90.cu)
+def test_fp32_planted_faults_each_hit_the_fp32_source_once():
+    """The planted faults of the fp32 route: each text occurs once in
+    flash_fwd.cu and changes it; each reaches some fp32 case of chip_smoke's
+    phase 13 (the cases the script runs), and every case is reached by
+    some fault."""
+    faults = _load_script("flash_planted_faults", "scripts/flash_planted_faults.py")
+    smoke = _load_script("chip_smoke", "chip_smoke.py")
+    text = F.SOURCE.read_text()
+    assert set(faults.FP32_FAULTS) == {"skip_middle_tile", "no_rescale_acc", "kv_head_mod",
+                                       "interior_one_tile_too_far", "stage_read_early"}
+    for name, (old, new) in faults.FP32_FAULTS.items():
+        assert text.count(old) == 1 and new != old, name
+    cases = faults.fp32_cases(smoke.FLASH_CASES)
+    assert cases and all(c[6] == "float32" for c in cases)
+    reach = {name: [faults.fp32_reaches(name, c) for c in cases] for name in faults.FP32_FAULTS}
+    assert all(any(r) for r in reach.values()), reach
+    assert all(any(r[i] for r in reach.values()) for i in range(len(cases)))
+    # the kv-head fault needs 1 < KV < H; the unmasked diagonal needs the mask or a ragged Sk
+    assert not faults.fp32_reaches("kv_head_mod", (1, 8, 8, 4, 4, 64, "float32", True))
+    assert not faults.fp32_reaches("interior_one_tile_too_far", (1, 128, 128, 4, 4, 64, "float32", False))
+    assert faults.fp32_reaches("interior_one_tile_too_far", (1, 128, 100, 4, 4, 64, "float32", False))
+
+
+MASKED = -(2.0 ** 99)  # the kernels' masked raw score (flash_fwd_sm90.cu, flash_fwd.cu)
 INT_MAX = 2 ** 31 - 1
 
 
@@ -295,6 +324,133 @@ def _key_tiles(q0, rows, sq, sk, bn, q_offset, window, causal):
         return 0, n
     first = max(0, p_lo - window + 1) // bn
     return first, min(p_hi, sk - 1) // bn - first + 1
+
+
+def _tile_needs_mask(k0, bn, p_lo, p_hi, sk, window, causal):
+    """``tile_needs_mask`` of csrc/flash_mask.cuh: whether the key tile k0 ..
+    k0 + bn − 1 needs a per-element mask for the rows at positions p_lo ..
+    p_hi."""
+    if k0 + bn > sk:
+        return True
+    return bool(causal) and (k0 + bn - 1 > p_lo or p_hi - k0 >= window)
+
+
+def _ffma_tiles(inst):
+    """``Shape<HD>`` of csrc/flash_fwd.cu at instance ``inst``: (query rows
+    per warp, warps per CTA, keys per tile)."""
+    return 16, 4, (64 if inst <= 64 else 32)
+
+
+def test_ffma_tiles_mirror_the_kernel_source_and_the_launcher():
+    """The Python mirrors of the fp32 kernel's tile shapes (this file's and
+    the planted-fault script's) match the source's ``Shape`` and
+    ``flash._block_rows``."""
+    text = F.SOURCE.read_text()
+    assert "constexpr int W = 4; " in text and "constexpr int WR = 16; " in text
+    assert "static constexpr int BK = HD <= 64 ? 64 : 32, DS = HD == 128 ? 2 : 1;" in text
+    faults = _load_script("flash_planted_faults", "scripts/flash_planted_faults.py")
+    for inst in F.INSTANCES["ffma"]:
+        wr, warps, bk = _ffma_tiles(inst)
+        assert faults.fp32_tiles(inst) == (wr * warps, wr, bk)
+        assert F._block_rows("ffma", inst) == wr * warps
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_tile_classification_is_exact_per_element(causal):
+    """The fp32 kernel's interior tiles: for every warp's rows of every
+    query block and every key tile, a tile takes no mask exactly when every
+    one of those rows sees every key of it and it ends at or before Sk
+    (per-element ``visible`` over a grid of (Sq, Sk, q_offset, window));
+    ``key_tiles`` walks every tile that some row sees a key of."""
+    for sq, sk, off, window, bn, wr in itertools.product(
+            (1, 17, 100, 130), (1, 33, 64, 100, 200), (0, 5, 64, 150, 300),
+            (INT_MAX, 1, 7, 40, 64, 100), (32, 64), (16, 32)):
+        if not causal and (off or window != INT_MAX):
+            continue
+        pos = off + np.arange(sq)[:, None]
+        col = np.arange(-(-sk // bn) * bn)[None, :]
+        vis = (col <= pos) & (pos - col < window) if causal else np.ones((sq, 1), bool)
+        seen = (col < sk) & vis
+        bq = 4 * wr
+        for q0 in range(0, sq, bq):
+            first, count = _key_tiles(q0, bq, sq, sk, bn, off, window, causal)
+            block = seen[q0:q0 + bq]
+            sees = block.reshape(block.shape[0], -1, bn).any(axis=(0, 2))
+            assert all(first <= t < first + count for t in np.flatnonzero(sees)), (sq, sk, off, window, q0)
+            for w0 in range(q0, min(q0 + bq, sq), wr):
+                rows = seen[w0:min(w0 + wr, sq)]
+                p_lo, p_hi = off + w0, off + min(w0 + wr, sq) - 1
+                for kt in range(-(-sk // bn)):
+                    interior = bool(rows[:, kt * bn:(kt + 1) * bn].all())
+                    assert _tile_needs_mask(kt * bn, bn, p_lo, p_hi, sk, window, causal) == (not interior), \
+                        (sq, sk, off, window, bn, wr, w0, kt)
+
+
+def _ffma_arithmetic(q, k, v, causal, *, q_offset=0, window=None):
+    """The fp32 kernel's arithmetic, emulated: query blocks of the
+    instance's rows and, per block, only the key tiles ``key_tiles`` walks;
+    per warp of rows the per-element mask only on the tiles
+    ``tile_needs_mask`` names (MASKED for hidden keys, no weight past Sk);
+    the running max in log2 units, c = fp32(scale)·fp32(log2 e) rounded
+    once, m = max(m, rowmax(raw)·c), p = ex2 of one FMA raw·c − m; l and
+    acc rescaled by corr each tile and acc += p·V in fp32."""
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    inst = F.instance("ffma", hd)
+    wr, warps, bk = _ffma_tiles(inst)
+    win = INT_MAX if window is None else max(window, 0)
+    kx, vx = F.expand_kv(k, h // k.shape[2]), F.expand_kv(v, h // k.shape[2])
+    raw = torch.einsum("bqhd,bkhd->bhqk", q.float(), kx.float())
+    c = (torch.tensor(1.0 / hd ** 0.5, dtype=torch.float32) * torch.tensor(1.4426950408889634,
+                                                                          dtype=torch.float32)).double()
+    out = torch.empty((b, h, sq, hd))
+    for q0 in range(0, sq, wr * warps):
+        first, count = _key_tiles(q0, wr * warps, sq, sk, bk, q_offset, win, causal)
+        for w0 in range(q0, min(q0 + wr * warps, sq), wr):
+            rows = slice(w0, min(w0 + wr, sq))
+            pos = q_offset + torch.arange(w0, rows.stop)[:, None]
+            m = torch.full((b, h, rows.stop - w0), -torch.inf)
+            l = torch.zeros((b, h, rows.stop - w0))
+            acc = torch.zeros((b, h, rows.stop - w0, hd))
+            for k0 in range(first * bk, (first + count) * bk, bk):
+                s = raw[..., rows, k0:k0 + bk]  # keys past Sk are absent: no weight
+                if causal and _tile_needs_mask(k0, bk, q_offset + w0, q_offset + rows.stop - 1, sk, win, causal):
+                    col = k0 + torch.arange(s.shape[-1])[None, :]
+                    s = torch.where((col <= pos) & (pos - col < win), s, MASKED)
+                m_new = torch.maximum(m, (s.amax(-1).double() * c).float())
+                corr = torch.exp2(m - m_new)
+                p = torch.exp2((s.double() * c - m_new.double()[..., None]).float())
+                l = l * corr + p.sum(-1)
+                acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vx[:, k0:k0 + bk].float())
+                m = m_new
+            out[:, :, rows] = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+@pytest.mark.parametrize("hd", [16, 64, 128])
+@pytest.mark.parametrize("case", [(512, 512, 0, None, True), (512, 512, 0, None, False),
+                                  (512, 512, 0, 100, True), (256, 1024, 768, None, True),
+                                  (128, 512, 480, 50, True)],
+                         ids=["causal", "full", "window100", "continued", "rows_seeing_no_key"])
+def test_smoke_tolerance_takes_the_fp32_kernel_arithmetic(hd, case):
+    """chip_smoke's per-entry fp32 bound (the premise of phases 13-15 and of
+    the fp32 prefill's held calls) holds the fp32 kernel's emulated
+    arithmetic — its block and key tiles, exp2 with the folded scale, masks
+    on edge tiles only — against the plain version at chunks 64 and 512 and
+    against float64, rows that see no key included."""
+    smoke = _load_script("chip_smoke", "chip_smoke.py")
+    sq, sk, off, window, causal = case
+    q, k, v = _t(*_qkv(hd + sq + off, 1, sq, sk, 4, 2, hd))
+    mask = {"q_offset": off, "window": window}
+    got = _ffma_arithmetic(q, k, v, causal, **mask)
+    abs_v = smoke.weighted_abs_v(q, k, v, causal=causal, **mask)
+    for chunk in (64, 512):
+        e = smoke.flash_error(got, F.flash_attention_plain(q, k, v, causal=causal, chunk=chunk, **mask), abs_v)
+        assert e["max_ratio"] <= 1, (chunk, e)
+    want = F.flash_attention_plain(q.double(), k.double(), v.double(), causal=causal, chunk=sk, **mask)
+    assert smoke.flash_error(got, want, abs_v, exact=True)["max_ratio"] <= 1
+    if window is not None and off + sq - window > sk - 1:  # the last row sees no key: the mean of v
+        torch.testing.assert_close(got[:, -1], v.mean(dim=1).repeat_interleave(2, dim=1), atol=ATOL, rtol=RTOL)
 
 
 def _tensor_core_arithmetic(q, k, v, causal, tile, *, q_offset=0, window=None, block=128):
