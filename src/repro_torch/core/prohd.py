@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.core import bounds, exact, projected, projections, selection, tile_bounds
 from repro_torch.kernels.hausdorff import ops as hd_ops
+from repro_torch.obs import trace as _obs
 
 __all__ = ["ProHDConfig", "ProHDEstimate", "prohd", "prohd_masks"]
 
@@ -119,25 +120,29 @@ def prohd(a: torch.Tensor, b: torch.Tensor, cfg: ProHDConfig = ProHDConfig(), *,
     n_a, d = a.shape
     n_b = b.shape[0]
     m = cfg.resolve_m(d)
-    mask_a, mask_b, proj_a, proj_b = prohd_masks(a, b, cfg, generator=generator)
-
-    if cfg.prune:
-        # HD is a set metric: a consistent row permutation changes nothing,
-        # and sorted rows make the tile interval gaps bite.
-        a, proj_a, _, perm_a = tile_bounds.order_by_projection(a, proj_a)
-        b, proj_b, _, perm_b = tile_bounds.order_by_projection(b, proj_b)
-        mask_a = mask_a[perm_a]
-        mask_b = mask_b[perm_b]
-
     cap_a = selection.selection_capacity(n_a, m, cfg.alpha, cfg.alpha_pca)
     cap_b = selection.selection_capacity(n_b, m, cfg.alpha, cfg.alpha_pca)
-    a_sel, va = selection.take_selected(a, mask_a, cap_a)
-    b_sel, vb = selection.take_selected(b, mask_b, cap_b)
+    with _obs.span("hd.prohd.directions", device=a.device, m=m, pca_method=cfg.pca_method):
+        dirs = projections.direction_set(a, b, m, method=cfg.pca_method, generator=generator)
+    with _obs.span("hd.prohd.extremes", device=a.device, cap_a=cap_a, cap_b=cap_b):
+        mask_a, mask_b, proj_a, proj_b = selection.select_extremes(
+            a, b, dirs, alpha=cfg.alpha, alpha_pca=cfg.alpha_pca
+        )
+        if cfg.prune:
+            # HD is a set metric: a consistent row permutation changes nothing,
+            # and sorted rows make the tile interval gaps bite.
+            a, proj_a, _, perm_a = tile_bounds.order_by_projection(a, proj_a)
+            b, proj_b, _, perm_b = tile_bounds.order_by_projection(b, proj_b)
+            mask_a = mask_a[perm_a]
+            mask_b = mask_b[perm_b]
+        a_sel, va = selection.take_selected(a, mask_a, cap_a)
+        b_sel, vb = selection.take_selected(b, mask_b, cap_b)
+        if cfg.prune:
+            # Gathering keeps the sort order, so the subsets' tables stay tight.
+            proj_a_sel, _ = selection.take_selected(proj_a, mask_a, cap_a)
+            proj_b_sel, _ = selection.take_selected(proj_b, mask_b, cap_b)
 
     if cfg.prune:
-        # Gathering keeps the sort order, so the subsets' tables stay tight.
-        proj_a_sel, _ = selection.take_selected(proj_a, mask_a, cap_a)
-        proj_b_sel, _ = selection.take_selected(proj_b, mask_b, cap_b)
         if cfg.inner == "full":
             hd = _queries_vs_full_hd(
                 a_sel, va, b_sel, vb, a, b, cfg,
@@ -151,8 +156,9 @@ def prohd(a: torch.Tensor, b: torch.Tensor, cfg: ProHDConfig = ProHDConfig(), *,
         hd = _subset_hd(a_sel, va, b_sel, vb, cfg)
 
     zero = torch.zeros((), dtype=torch.float32, device=a.device)
-    bound = bounds.additive_bound(a, b, proj_a, proj_b) if cfg.compute_bound else zero
-    hd_proj = projected.projected_hd(proj_a, proj_b) if cfg.compute_projected else zero
+    with _obs.span("hd.prohd.certificate", device=a.device, m=m):
+        bound = bounds.additive_bound(a, b, proj_a, proj_b) if cfg.compute_bound else zero
+        hd_proj = projected.projected_hd(proj_a, proj_b) if cfg.compute_projected else zero
     return ProHDEstimate(
         hd=hd,
         n_sel_a=mask_a.sum().to(torch.int32),

@@ -33,6 +33,7 @@ from repro_torch.hd import registry, resolver
 from repro_torch.hd.config import HDConfig
 from repro_torch.hd.methods import DispatchContext
 from repro_torch.hd.result import HDMeta, HDResult
+from repro_torch.obs import trace as _obs
 
 __all__ = ["set_distance", "HDEngine"]
 
@@ -104,51 +105,54 @@ def set_distance(
     cfg = config if config is not None else HDConfig()
     a = as_tensor(a, device)
     b = as_tensor(b, a.device)
-    valid_a, valid_b = (None, None) if masks is None else masks
-    valid_a = as_mask(valid_a, a.device)
-    valid_b = as_mask(valid_b, a.device)
-    if prune_projs is not None:
-        prune_projs = tuple(as_tensor(p, a.device) for p in prune_projs)
-    if validate:
-        _reject_nonfinite("a", a, valid_a)
-        _reject_nonfinite("b", b, valid_b)
-    n_a, d = a.shape
-    n_b = b.shape[0]
-    kind = a.device.type
+    with _obs.span("hd.set_distance", device=a.device, variant=variant, method=method) as sp:
+        valid_a, valid_b = (None, None) if masks is None else masks
+        valid_a = as_mask(valid_a, a.device)
+        valid_b = as_mask(valid_b, a.device)
+        if prune_projs is not None:
+            prune_projs = tuple(as_tensor(p, a.device) for p in prune_projs)
+        if validate:
+            with _obs.span("hd.validate", device=a.device):
+                _reject_nonfinite("a", a, valid_a)
+                _reject_nonfinite("b", b, valid_b)
+        n_a, d = a.shape
+        n_b = b.shape[0]
+        kind = a.device.type
 
-    if backend == "auto":
-        n_devices = dist_mod.batch_size(mesh, batch_axes) if mesh is not None else 1
-        backend = resolver.resolve_backend(
-            variant, method, n_a, n_b, d, device_kind=kind, n_devices=n_devices,
+        if backend == "auto":
+            n_devices = dist_mod.batch_size(mesh, batch_axes) if mesh is not None else 1
+            backend = resolver.resolve_backend(
+                variant, method, n_a, n_b, d, device_kind=kind, n_devices=n_devices,
+            )
+        impl = registry.resolve(variant, method, backend)
+        sp.set(backend=backend, n_a=n_a, n_b=n_b, d=d)
+
+        block_a, block_b = cfg.block_a, cfg.block_b
+        if block_a is None or block_b is None:
+            rba, rbb = resolver.resolve_block_sizes(n_a, n_b, d, device_kind=kind, backend=backend)
+            block_a = rba if block_a is None else block_a
+            block_b = rbb if block_b is None else block_b
+
+        ctx = DispatchContext(
+            valid_a=valid_a, valid_b=valid_b, generator=generator, cfg=cfg,
+            block_a=block_a, block_b=block_b, prune_projs=prune_projs,
+            mesh=mesh, batch_axes=tuple(batch_axes),
         )
-    impl = registry.resolve(variant, method, backend)
+        t0 = time.perf_counter() if measure else 0.0
+        value, lower, upper, stats = impl(a, b, ctx)
+        elapsed = None
+        if measure:
+            if kind == "cuda":
+                torch.cuda.synchronize(a.device)
+            if backend == "distributed":
+                torch.distributed.barrier(group=dist_mod.batch_group(mesh, batch_axes))
+            elapsed = time.perf_counter() - t0
 
-    block_a, block_b = cfg.block_a, cfg.block_b
-    if block_a is None or block_b is None:
-        rba, rbb = resolver.resolve_block_sizes(n_a, n_b, d, device_kind=kind, backend=backend)
-        block_a = rba if block_a is None else block_a
-        block_b = rbb if block_b is None else block_b
-
-    ctx = DispatchContext(
-        valid_a=valid_a, valid_b=valid_b, generator=generator, cfg=cfg,
-        block_a=block_a, block_b=block_b, prune_projs=prune_projs,
-        mesh=mesh, batch_axes=tuple(batch_axes),
-    )
-    t0 = time.perf_counter() if measure else 0.0
-    value, lower, upper, stats = impl(a, b, ctx)
-    elapsed = None
-    if measure:
-        if kind == "cuda":
-            torch.cuda.synchronize(a.device)
-        if backend == "distributed":
-            torch.distributed.barrier(group=dist_mod.batch_group(mesh, batch_axes))
-        elapsed = time.perf_counter() - t0
-
-    meta = HDMeta(
-        variant=variant, method=method, backend=backend,
-        block_a=block_a, block_b=block_b, elapsed_s=elapsed,
-    )
-    return HDResult(value=value, lower=lower, upper=upper, stats=stats, meta=meta)
+        meta = HDMeta(
+            variant=variant, method=method, backend=backend,
+            block_a=block_a, block_b=block_b, elapsed_s=elapsed,
+        )
+        return HDResult(value=value, lower=lower, upper=upper, stats=stats, meta=meta)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -31,6 +31,7 @@ import torch
 from repro_torch.core import exact, tile_bounds
 from repro_torch.core.exact import finalize_mins as _finalize
 from repro_torch.kernels.hausdorff import hausdorff as K
+from repro_torch.obs import trace as _obs
 
 __all__ = [
     "fit_block",
@@ -84,37 +85,40 @@ def fused_min_sqdists(
     instance and lets the column side never veto a skip: min_b is then
     not computed on CUDA and not exact on the CPU, and must be ignored.
     """
-    if a.device.type == "cpu" and b.device.type == "cpu":
-        return exact.fused_min_sqdists_tiled(
-            a, b, valid_a=valid_a, valid_b=valid_b,
-            block_a=block_a, block_b=block_b, prune_projs=prune_projs,
-        )
-    if a.device.type != "cuda" or b.device != a.device:
-        raise ValueError(f"a and b must both be on one CUDA device or on the CPU, got {a.device}, {b.device}")
-    n_a = a.shape[0]
-    n_b = b.shape[0]
-    block_a = fit_block(block_a, n_a)
-    block_b = fit_block(block_b, n_b)
-    if a.dtype != b.dtype:
-        a, b = a.float(), b.float()
-    a, a2 = _poison(a, valid_a)
-    b, b2 = _poison(b, valid_b)
+    # rows x cols pairs of d coordinates: the work handed to the kernel
+    with _obs.span("hd.scan", device=a.device, rows=a.shape[0], cols=b.shape[0], d=a.shape[-1],
+                   directed=directed, pruned=prune_projs is not None):
+        if a.device.type == "cpu" and b.device.type == "cpu":
+            return exact.fused_min_sqdists_tiled(
+                a, b, valid_a=valid_a, valid_b=valid_b,
+                block_a=block_a, block_b=block_b, prune_projs=prune_projs,
+            )
+        if a.device.type != "cuda" or b.device != a.device:
+            raise ValueError(f"a and b must both be on one CUDA device or on the CPU, got {a.device}, {b.device}")
+        n_a = a.shape[0]
+        n_b = b.shape[0]
+        block_a = fit_block(block_a, n_a)
+        block_b = fit_block(block_b, n_b)
+        if a.dtype != b.dtype:
+            a, b = a.float(), b.float()
+        a, a2 = _poison(a, valid_a)
+        b, b2 = _poison(b, valid_b)
 
-    lb = cut_a = cut_b = None
-    if prune_projs is not None:
-        proj_a, proj_b = prune_projs
-        tables = tile_bounds.prune_tables(
-            a, proj_a, valid_a, b, proj_b, valid_b, block_a, block_b, directed=directed
-        )
-        lb, cut_a, cut_b = tables
+        lb = cut_a = cut_b = None
+        if prune_projs is not None:
+            proj_a, proj_b = prune_projs
+            tables = tile_bounds.prune_tables(
+                a, proj_a, valid_a, b, proj_b, valid_b, block_a, block_b, directed=directed
+            )
+            lb, cut_a, cut_b = tables
 
-    min_a = torch.full((n_a,), torch.inf, dtype=torch.float32, device=a.device)
-    min_b = torch.full((n_b,), torch.inf, dtype=torch.float32, device=a.device)
-    K.fused_minscan(
-        a, b, a2, b2, min_a, min_b, lb=lb, cut_a=cut_a, cut_b=cut_b,
-        block_a=block_a, block_b=block_b, directed=directed,
-    )
-    return min_a, min_b
+        min_a = torch.full((n_a,), torch.inf, dtype=torch.float32, device=a.device)
+        min_b = torch.full((n_b,), torch.inf, dtype=torch.float32, device=a.device)
+        K.fused_minscan(
+            a, b, a2, b2, min_a, min_b, lb=lb, cut_a=cut_a, cut_b=cut_b,
+            block_a=block_a, block_b=block_b, directed=directed,
+        )
+        return min_a, min_b
 
 
 def min_sqdists(

@@ -10,7 +10,10 @@ span record
     ``parent_id`` (int or null), ``t_start`` (float, unix seconds),
     ``dur_s`` (float, monotonic-clock duration), ``status`` ("ok"|"error"),
     ``attrs`` (JSON object), optional ``error`` (exception-chain list of
-    ``{"type", "message"}``, outermost first — present iff status="error").
+    ``{"type", "message"}``, outermost first — present iff status="error"),
+    optional ``device_s`` (non-negative float, the device time of the
+    work queued inside the span on CUDA; the reference's validator ignores
+    it).
 
 event record
     ``type="event"``, ``name`` (str), ``rid`` (str or null),
@@ -83,6 +86,10 @@ def validate_events(events: list[dict]) -> dict:
             dur = _require(rec, i, "dur_s", (int, float))
             if dur < 0:
                 raise SchemaError(f"record {i}: negative dur_s {dur}: {rec!r}")
+            if "device_s" in rec:
+                dev = _require(rec, i, "device_s", (int, float))
+                if isinstance(dev, bool) or dev < 0:
+                    raise SchemaError(f"record {i}: device_s {dev!r} is not a non-negative number: {rec!r}")
             status = _require(rec, i, "status", str)
             if status not in ("ok", "error"):
                 raise SchemaError(f"record {i}: status {status!r} not ok|error")

@@ -27,18 +27,51 @@ Design constraints (docs/api.md "Observability contract"):
   still yields a correlated tree.  :func:`bind` re-establishes the pair
   across an executor hop, and :func:`start_span` opens a span that
   outlives a lexical scope (the engine's admission → completion).
+- **Device time.**  On a CUDA path the host only queues work, so a
+  span's ``dur_s`` times the enqueue.  A span opened with ``device=`` a
+  CUDA ``torch.device`` (tracing on) also records a timing
+  ``torch.cuda.Event`` on that device's current stream when it opens and
+  another on the same stream when it finishes; its record then gains
+  ``device_s``, the seconds between the stream reaching the two.  ``finish()`` never
+  synchronises: ``device_s`` is resolved when the records are read, by
+  :func:`events`, :func:`drain` and, for the JSONL export, by the time
+  :func:`disable` returns (a line waits until its span's ``device_s`` is
+  known; lines stay in emit order).  Each waits only on the events of the
+  spans it resolves.  On the CPU, with ``device=None``, or while the
+  stream is being captured into a CUDA graph, no events are recorded and
+  the record has no ``device_s``.
+- **One clock with the profiler.**  ``t_start`` is ``time.time()`` taken
+  just before the bridge's ``record_function`` range opens, and
+  ``torch.profiler``'s host stamps are Unix-epoch nanoseconds, so a span
+  and its range start together on the device trace's clock.
 - **One source of truth.**  On exit every span also feeds the default
   :class:`~repro_torch.obs.metrics.MetricsRegistry`: histogram
   ``span.<name>.s`` observes the duration and counter
   ``span.<name>.total`` the completion — the per-stage latency
   distributions exist without a single extra instrumentation site.
 
+Span taxonomy of the pairwise path (``hd.*``; each passes the clouds'
+``device``, and its attributes are values the host already has, so no
+span reads a device tensor or adds a host sync):
+
+    hd.set_distance        the front door's whole call (variant, method,
+                           backend as resolved, n_a, n_b, d)
+      hd.validate          the non-finite check of both clouds
+      hd.prohd.directions  centroid + PCA directions (m, pca_method)
+      hd.prohd.extremes    alpha-extremes, their packing to static
+                           capacities and the prune reorder (cap_a, cap_b)
+      hd.scan              one kernel-1 scan with its launcher's work
+                           (rows, cols, d: the work handed to the kernel;
+                           directed, pruned)
+      hd.prohd.certificate additive bound + projected estimator (m)
+
 Event records (the JSONL export schema of the reference's
 ``obs/export.validate_events``):
 
     {"type": "span",  "name": str, "rid": str, "span_id": int,
      "parent_id": int|null, "t_start": float, "dur_s": float,
-     "status": "ok"|"error", "attrs": {...}, ["error": {chain}]}
+     "status": "ok"|"error", "attrs": {...}, ["error": {chain}],
+     ["device_s": float]}
     {"type": "event", "name": str, "rid": str|null, "span_id": int|null,
      "t": float, "error": bool, "attrs": {...}}
 """
@@ -94,6 +127,10 @@ class _State:
         self.events: list[dict] = []
         self.jsonl = None  # open file handle, or None
         self.record_function = False  # the profiler bridge
+        # (record, start event, end event) of spans whose device_s is due
+        self.pending: list[tuple[dict, Any, Any]] = []
+        # JSONL lines held back, in emit order, behind a pending device_s
+        self.unwritten: list[dict] = []
 
 
 _STATE = _State()
@@ -119,6 +156,7 @@ def enable(*, jsonl=None, record_function: bool = False) -> None:
     """
     with _STATE.lock:
         if _STATE.jsonl is not None:
+            _resolve_device_times(wait=True)
             _STATE.jsonl.close()
         _STATE.jsonl = open(jsonl, "a") if jsonl is not None else None
         _STATE.record_function = bool(record_function)
@@ -127,27 +165,83 @@ def enable(*, jsonl=None, record_function: bool = False) -> None:
 
 def disable() -> None:
     """Turn tracing off (the default state).  In-memory events are kept
-    until :func:`drain`; the JSONL handle is closed."""
+    until :func:`drain`; the JSONL handle is closed, every line written."""
     with _STATE.lock:
         _STATE.enabled = False
         _STATE.record_function = False
+        _resolve_device_times(wait=True)
         if _STATE.jsonl is not None:
             _STATE.jsonl.close()
             _STATE.jsonl = None
 
 
 def events() -> list[dict]:
-    """Copy of the in-memory event buffer (emit order)."""
+    """Copy of the in-memory event buffer (emit order), every span's
+    ``device_s`` resolved."""
     with _STATE.lock:
+        _resolve_device_times(wait=True)
         return list(_STATE.events)
 
 
 def drain() -> list[dict]:
-    """Return AND clear the in-memory event buffer."""
+    """Return AND clear the in-memory event buffer (``device_s`` resolved)."""
     with _STATE.lock:
+        _resolve_device_times(wait=True)
         out = _STATE.events
         _STATE.events = []
         return out
+
+
+def _device_stream(device):
+    """``device``'s current stream, whose work a span times, or None off
+    CUDA and during a CUDA-graph capture."""
+    if getattr(device, "type", None) != "cuda":
+        return None
+    import torch
+
+    if torch.cuda.is_current_stream_capturing():
+        return None
+    return torch.cuda.current_stream(device)
+
+
+def _timing_event(stream):
+    """A timing event recorded on ``stream``: the stream reaches it once the
+    work queued before it has run."""
+    import torch
+
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(stream)
+    return ev
+
+
+def _resolve_device_times(*, wait: bool) -> None:
+    """Fill ``device_s`` of the pending spans (caller holds the lock):
+    every one, waiting on its events, if ``wait``; else those whose
+    events the stream has reached.  Then write the JSONL lines no longer
+    held back."""
+    due = []
+    for rec, ev0, ev1 in _STATE.pending:
+        if wait:
+            ev0.synchronize()
+            ev1.synchronize()
+        elif not (ev0.query() and ev1.query()):
+            due.append((rec, ev0, ev1))
+            continue
+        rec["device_s"] = ev0.elapsed_time(ev1) * 1e-3
+    _STATE.pending = due
+    if _STATE.jsonl is None:
+        _STATE.unwritten = []
+        return
+    waiting = {id(rec) for rec, _, _ in due}
+    n = 0
+    for rec in _STATE.unwritten:
+        if id(rec) in waiting:
+            break
+        _STATE.jsonl.write(json.dumps(rec) + "\n")
+        n += 1
+    if n:
+        _STATE.jsonl.flush()
+    del _STATE.unwritten[:n]
 
 
 @contextlib.contextmanager
@@ -235,14 +329,18 @@ def _jsonable(v: Any) -> Any:
     return str(v)
 
 
-def _emit(record: dict) -> None:
+def _emit(record: dict, marks: tuple | None = None) -> None:
+    """Collect ``record``; ``marks`` (start, end events) make its
+    ``device_s`` due."""
     with _STATE.lock:
         if not _STATE.enabled:
             return
         _STATE.events.append(record)
+        if marks is not None:
+            _STATE.pending.append((record, *marks))
         if _STATE.jsonl is not None:
-            _STATE.jsonl.write(json.dumps(record) + "\n")
-            _STATE.jsonl.flush()
+            _STATE.unwritten.append(record)
+            _resolve_device_times(wait=False)
 
 
 class Span:
@@ -253,9 +351,11 @@ class Span:
     __slots__ = (
         "name", "attrs", "rid", "span_id", "parent_id",
         "_t0", "_t_start", "_token", "_rf", "_done", "status", "error",
+        "_stream", "_ev0",
     )
 
-    def __init__(self, name: str, rid: str | None, attrs: dict, parent_id: int | None = None):
+    def __init__(self, name: str, rid: str | None, attrs: dict, parent_id: int | None = None,
+                 device=None):
         frame = _CTX.get()
         self.name = name
         self.attrs = attrs
@@ -270,12 +370,15 @@ class Span:
         self._done = False
         self.status = "ok"
         self.error = None
-        self._t_start = time.time()
         if _STATE.record_function:
             from torch.profiler import record_function
 
             self._rf = record_function(name)
+        self._t_start = time.time()
+        if self._rf is not None:
             self._rf.__enter__()
+        self._stream = _device_stream(device)
+        self._ev0 = None if self._stream is None else _timing_event(self._stream)
         self._t0 = time.monotonic()
 
     def set(self, **attrs) -> "Span":
@@ -307,6 +410,7 @@ class Span:
         if self._done:
             return
         self._done = True
+        marks = None if self._ev0 is None else (self._ev0, _timing_event(self._stream))
         if self._rf is not None:
             self._rf.__exit__(None, None, None)
             self._rf = None
@@ -321,7 +425,7 @@ class Span:
         }
         if self.error is not None:
             record["error"] = self.error
-        _emit(record)
+        _emit(record, marks)
         # fold into the metrics registry: per-span-name latency histogram
         # + completion counter — one source of truth, zero extra sites
         from repro_torch.obs import metrics as _metrics
@@ -358,22 +462,25 @@ class _NoopSpan:
 _NOOP = _NoopSpan()
 
 
-def span(name: str, *, rid: str | None = None, **attrs):
+def span(name: str, *, rid: str | None = None, device=None, **attrs):
     """Open a span (context manager).  THE instrumentation entry point:
-    when tracing is off this is one flag check and a shared inert object."""
+    when tracing is off this is one flag check and a shared inert object.
+    ``device`` (a ``torch.device``): on CUDA the record gains ``device_s``,
+    the device time of the work queued inside the span."""
     if not _STATE.enabled:
         return _NOOP
-    return Span(name, rid, attrs)
+    return Span(name, rid, attrs, device=device)
 
 
-def start_span(name: str, *, rid: str | None = None, parent_id: int | None = None, **attrs):
+def start_span(name: str, *, rid: str | None = None, parent_id: int | None = None, device=None,
+               **attrs):
     """Start a span WITHOUT binding the ambient context — for regions that
     outlive a lexical scope (close with ``.finish()``), e.g. the engine's
     admission→completion.  Children must be parented explicitly via
-    :func:`bind` (or ``parent_id``)."""
+    :func:`bind` (or ``parent_id``).  ``device`` as in :func:`span`."""
     if not _STATE.enabled:
         return _NOOP
-    return Span(name, rid, attrs, parent_id=parent_id)
+    return Span(name, rid, attrs, parent_id=parent_id, device=device)
 
 
 def event(name: str, *, error: bool = False, rid: str | None = None, **attrs) -> None:
