@@ -659,6 +659,9 @@ def zero_counts() -> None:
 
     for fn in launchers().values():
         fn.launches = 0
+    from repro_torch.kernels.hausdorff import hausdorff as K
+
+    K.fused_minscan.instance_launches.update(dict.fromkeys(K.INSTANCES, 0))
     for r in F.flash_fwd.route_launches:
         F.flash_fwd.route_launches[r] = 0
 
@@ -751,7 +754,7 @@ def phase_build():
             f.result()
     ptxas = {}
     instances = {}
-    entry = {"fused_minscan": "fused_minscan_kernel", "batched_minscan": "bucket_minscan_kernel",
+    entry = {"fused_minscan": "fused_minscan_", "batched_minscan": "bucket_minscan_kernel",
              "multiquery_minscan": "bucket_minscan_kernel"}
     text_of = {}
     for name in launchers():
@@ -2614,7 +2617,7 @@ def phase_obs(seed: int, corpus: dict) -> dict:
     _, small, q_small, _, _ = corpus_store(seed + 2, N_OBS_SETS)
     search(q_small, small, K_TOP, on_fault="raise")  # warm: first calls of the small store's shapes
     stages = ("cascade.stage0", "cascade.stage1", "cascade.stage2a", "cascade.stage2b")
-    kernels = {"bucket_minscan_kernel": "batched_minscan", "fused_minscan_kernel": "fused_minscan"}
+    kernels = {"bucket_minscan_kernel": "batched_minscan", "fused_minscan_": "fused_minscan"}
     launch_calls = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     zero_counts()

@@ -6,10 +6,11 @@
 
 Run from the repository root on a machine with one NVIDIA GPU and nvcc.
 It builds ``src/repro_torch/kernels/hausdorff/csrc/fused_minscan.cu``
-several times with its tuning knobs overridden (k-slice ``MINSCAN_BK``,
-ring depth ``MINSCAN_STAGES``, unroll of the 4-k steps
-``MINSCAN_KK_UNROLL``), all ``nvcc`` runs started together, and times
-each build at the two shapes
+several times with the resident instance's tuning knobs overridden (ring
+depth ``MINSCAN_RING``, unroll of the 4-k steps ``MINSCAN_STEP_UNROLL``,
+register tile ``MINSCAN_QN``: 8 × QN entries a consumer thread, a 128 ×
+16·QN tile pair; the producer's registers ``MINSCAN_PRODUCER_REGS``), all
+``nvcc`` runs started together, and times each build at the two shapes
 phase 7 of ``chip_smoke.py`` times (65,536² × 256, and ProHD's sweep,
 41,930 × 1,048,576 × 256) in each launch mode: a-tile resident or
 streamed, directed or bidirectional instance. ``--parent`` adds an
@@ -27,11 +28,15 @@ the default build's bit for bit, and the parent's too. It prints one JSON
 line per measurement, the card's name, power limit and SM clock under the
 kernel's load, and exits non-zero if a build fails or a result differs.
 ``--alt`` times another source with this kernel's C interface beside the
-builds. ``--parent-src`` (an earlier checkout's ``src/``) adds the host-clock time
+builds (such as the parent commit's, ``git show``; a header it includes
+that is not beside it is taken from this tree's ``csrc/``).  Each build's
+registers and spill bytes per instance are ptxas's (``-Xptxas -v``); where
+a kernel trades registers with ``setmaxnreg``, ptxas reports the launch's
+budget, so the machine code's own count is given too. ``--parent-src`` (an earlier checkout's ``src/``) adds the host-clock time
 per call of the ops wrappers at 256², parent and this tree in turns. The
-default build's k-loop is also counted from ``cuobjdump -sass`` (opcodes
-and the static schedule's stall cycles), for the instruction mix the card
-is asked to issue.
+default (and the alternative) build's k-loop is also counted from
+``cuobjdump -sass`` (opcodes and the static schedule's stall cycles), for
+the instruction mix the card is asked to issue.
 """
 from __future__ import annotations
 
@@ -57,10 +62,11 @@ D = 256
 # TINY_CALLS calls per event pair (host overhead is not in these times).
 SHAPES = (("65536x65536", 65_536, 65_536), ("sweep", 41_930, 1_048_576), ("256x256", 256, 256))
 TINY_CALLS = 50
-# name → (MINSCAN_BK, MINSCAN_STAGES, MINSCAN_KK_UNROLL); the first is the
+# name → the resident instance's knobs overridden; the first is the
 # source's default.
-VARIANTS = {"default": (32, 3, 8), "stages4": (32, 4, 8), "unroll2": (32, 3, 2), "unroll1": (32, 3, 1),
-            "bk64s2": (64, 2, 16), "bk64s3": (64, 3, 16), "bk16s4": (16, 4, 4)}
+VARIANTS = {"default": {}, "ring2": {"MINSCAN_RING": 2}, "unroll1": {"MINSCAN_STEP_UNROLL": 1},
+            "unroll4": {"MINSCAN_STEP_UNROLL": 4}, "qn8": {"MINSCAN_QN": 8},
+            "preg24": {"MINSCAN_PRODUCER_REGS": 24}}
 TILE = 128
 MAX_SMEM = 232_448
 
@@ -147,6 +153,16 @@ def sass_k_loop(lib: Path) -> dict:
     return out
 
 
+def sass_registers(lib: Path) -> dict[str, int]:
+    """Registers each kernel of a built library uses, from its machine code."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    return _build.sass_registers(text)
+
+
 def build_all(parent: Path | None, alt: Path | None = None) -> dict:
     """Compile every variant (and the parent, and an alternative source) in
     parallel; load each."""
@@ -155,13 +171,14 @@ def build_all(parent: Path | None, alt: Path | None = None) -> dict:
     nvcc = _build.find_nvcc()
     OUT.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for name, (bk, stages, unroll) in VARIANTS.items():
-        jobs[name] = [nvcc, *_build.NVCC_FLAGS, f"-DMINSCAN_BK={bk}", f"-DMINSCAN_STAGES={stages}",
-                      f"-DMINSCAN_KK_UNROLL={unroll}", "-shared", "-o", str(OUT / f"{name}.so"), str(SOURCE)]
+    for name, knobs in VARIANTS.items():
+        jobs[name] = [nvcc, *_build.NVCC_FLAGS, *(f"-D{k}={v}" for k, v in knobs.items()),
+                      "-shared", "-o", str(OUT / f"{name}.so"), str(SOURCE)]
+    include = f"-I{SOURCE.parent}"
     if parent is not None:
-        jobs["parent"] = [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(OUT / "parent.so"), str(parent)]
+        jobs["parent"] = [nvcc, *_build.NVCC_FLAGS, include, "-shared", "-o", str(OUT / "parent.so"), str(parent)]
     if alt is not None:
-        jobs["alt"] = [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(OUT / "alt.so"), str(alt)]
+        jobs["alt"] = [nvcc, *_build.NVCC_FLAGS, include, "-shared", "-o", str(OUT / "alt.so"), str(alt)]
     t0 = time.perf_counter()
     procs = {k: subprocess.Popen(v, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for k, v in jobs.items()}
@@ -183,7 +200,10 @@ def build_all(parent: Path | None, alt: Path | None = None) -> dict:
             lib.fused_minscan_occupancy.argtypes = [i, i, i]
         lib.fused_minscan.restype = i
         libs[k] = lib
-        report = {n: v for n, v in _build.ptxas_report(logs[k]).items() if "fused_minscan_kernel" in n}
+        report = {n: v for n, v in _build.ptxas_report(logs[k]).items() if "fused_minscan_" in n}
+        for n, regs in sass_registers(OUT / f"{k}.so").items():
+            if n in report:
+                report[n]["sass_registers"] = regs
         emit({"build": k, "knobs": VARIANTS.get(k), "kernels": report})
         if any(v.get("spill_bytes", 0) for v in report.values()):
             print(f"minscan_levers: {k} spills", file=sys.stderr)

@@ -18,7 +18,8 @@ Only CUDA tensors are accepted: the plain version for the CPU is
 wrapper.  The library is built from the checkout's source at first call
 (``repro_torch.kernels._build``) and launched on PyTorch's current stream;
 the launcher never synchronises.  ``fused_minscan.launches`` counts
-launches.
+launches, ``fused_minscan.instance_launches`` each instance's
+(:func:`instance`), and the launcher returns the instance it launched.
 """
 from __future__ import annotations
 
@@ -32,28 +33,43 @@ import torch
 
 from repro_torch.kernels import _build, refuse_grad
 
-__all__ = ["TILE", "TABLE_BLOCK", "SOURCE", "MAX_SMEM", "LaunchPlan", "build", "smem_bytes",
-           "launch_plan", "pair_range", "fused_minscan"]
+__all__ = ["TILE", "TABLE_BLOCK", "SOURCE", "MAX_SMEM", "INSTANCES", "LaunchPlan", "build", "tile_b",
+           "smem_bytes", "resident_smem_bytes", "plan_smem_bytes", "launch_plan", "pair_range", "instance",
+           "fused_minscan"]
 
-# Rows of a and of b per CTA tile; prune-table blocks are multiples of it.
+# Rows of a per CTA tile, and of b in the streamed instance (the resident
+# one's b-tile is ``tile_b(True)``); prune-table blocks are multiples of it.
 TILE = 128
-# Default prune-table block edge: 4 tiles.  The table holds
-# (n_a / TABLE_BLOCK)·(n_b / TABLE_BLOCK) entries; finer blocks prove more
-# tiles skippable, coarser ones make the tables cheaper.  Not tuned yet.
+# Default prune-table block edge: 4 tiles, a whole number of either
+# instance's b-tiles.  The table holds (n_a / TABLE_BLOCK)·(n_b /
+# TABLE_BLOCK) entries; finer blocks prove more tiles skippable, coarser
+# ones make the tables cheaper.  Not tuned yet.
 TABLE_BLOCK = 512
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_minscan.cu"
 
-# The kernel's constants (csrc/fused_minscan.cu), mirrored for the plan;
-# the kernel refuses a launch whose shared-memory size disagrees.
-_BK = 32            # k-slice per ring slot
+# The kernel's constants (csrc/fused_minscan.cu, csrc/minscan_tile.cuh),
+# mirrored for the plan; the kernel refuses a launch whose shared-memory
+# size disagrees.
+_BK = 32            # k-slice per ring slot, both instances
+# The streamed instance's tile body (minscan_tile.cuh, shared with kernels
+# 2 and 3): 128-row slices of a padded row pitch, STAGES slots.
 _STAGES = 3         # ring slots
 _PITCH = _BK + 4    # stage row pitch, floats
 _SLICE_BYTES = TILE * _PITCH * 4
+# The resident instance: 128 × 256 tile pairs, slices of 128-byte swizzled
+# rows, a ring of _RING b-slices, 8-byte mbarriers (full and empty per
+# slot, a-free per a-slice) and two column-min rows of 256.
+_TILE_B = 256
+_RING = 3
+_ROW_BYTES = _BK * 4
 # Shared memory one block can use on sm_90 (227 KB).
 MAX_SMEM = 232_448
 # A CTA keeps its a-tile resident only if it walks at least this many
-# b-tiles per a-tile: the load of a resident tile is not overlapped.
+# b-tiles per a-tile (kernels 2 and 3 take the same rule for their
+# resident query tile, whose load is not overlapped).
 _RESIDENT_MIN_WALK = 4
+# The instances, named as the launcher reports them.
+INSTANCES = ("resident.directed", "resident.bidirectional", "streamed.directed", "streamed.bidirectional")
 
 _lib: ctypes.CDLL | None = None
 
@@ -80,12 +96,37 @@ def _row_stride(d: int) -> int:
     return max(4, -(-d // 4) * 4)
 
 
+def tile_b(resident: bool) -> int:
+    """Rows of b per tile pair of an instance."""
+    return _TILE_B if resident else TILE
+
+
 def smem_bytes(d: int, resident: bool) -> int:
-    """Dynamic shared memory of one CTA: the resident a-tile's k-slices (if
+    """Dynamic shared memory of one CTA of the tile body of
+    ``csrc/minscan_tile.cuh`` (kernels 2 and 3, and this kernel's streamed
+    instance, ``resident=False``): the resident query tile's k-slices (if
     any), the ring, and the two column-min rows."""
     n_k = -(-_row_stride(d) // _BK)
     slices = n_k + _STAGES if resident else 2 * _STAGES
     return slices * _SLICE_BYTES + 2 * TILE * 4
+
+
+def resident_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one CTA of this kernel's resident instance:
+    the a-tile's k-slices, the ring of b-slices, the mbarriers and the two
+    column-min rows."""
+    n_k = -(-_row_stride(d) // _BK)
+    return (n_k * TILE + _RING * _TILE_B) * _ROW_BYTES + 8 * (2 * _RING + n_k) + 2 * _TILE_B * 4
+
+
+def plan_smem_bytes(d: int, resident: bool) -> int:
+    """Dynamic shared memory of one CTA of an instance of this kernel."""
+    return resident_smem_bytes(d) if resident else smem_bytes(d, False)
+
+
+def instance(resident: bool, directed: bool) -> str:
+    """The name of an instance, as :data:`INSTANCES` lists it."""
+    return f"{'resident' if resident else 'streamed'}.{'directed' if directed else 'bidirectional'}"
 
 
 class LaunchPlan(NamedTuple):
@@ -94,7 +135,8 @@ class LaunchPlan(NamedTuple):
     resident: bool   # a-tile resident in shared memory, only b streams
     smem: int        # dynamic shared memory per CTA, bytes
     grid: int        # persistent CTAs
-    n_pairs: int     # tile pairs, a-tile-major: pair p = (p // tiles_b, p % tiles_b)
+    n_pairs: int     # tile pairs of TILE × tile_b(resident) rows, a-tile-major:
+                     # pair p = (p // tiles_b, p % tiles_b)
     ld: int          # staged row stride, floats
 
 
@@ -111,22 +153,25 @@ def launch_plan(n_a: int, n_b: int, d: int, sms: int, *, ctas_per_sm: int = 1,
 
     The grid is persistent: ``min(pairs, sms · ctas_per_sm)`` CTAs, each
     walking one of equal ranges of the a-tile-major pairs, so every pair is
-    covered once and a small query side still fills the card.  The a-tile
-    is resident when it fits in shared memory beside the ring and a CTA
-    walks at least ``_RESIDENT_MIN_WALK`` b-tiles per a-tile; ``resident``
-    forces the choice (a resident tile that does not fit raises).
+    covered once and a small query side still fills the card.  The
+    resident instance (a-tile in shared memory, 256-row b-tiles) is taken
+    when its a-tile fits (D ≤ 256) and a CTA walks at least
+    ``_RESIDENT_MIN_WALK`` of its b-tiles per a-tile; ``resident`` forces
+    the choice (a resident tile that does not fit raises).
     """
     if min(n_a, n_b, sms, ctas_per_sm) < 1 or d < 0:
         raise ValueError(f"launch_plan needs positive sizes, got {(n_a, n_b, d, sms, ctas_per_sm)}")
-    tiles_b = math.ceil(n_b / TILE)
-    n_pairs = math.ceil(n_a / TILE) * tiles_b
-    grid = min(n_pairs, sms * ctas_per_sm)
-    fits = smem_bytes(d, True) <= MAX_SMEM
+    tiles_a = math.ceil(n_a / TILE)
+    fits = resident_smem_bytes(d) <= MAX_SMEM
     if resident is None:
-        resident = fits and min(tiles_b, n_pairs // grid) >= _RESIDENT_MIN_WALK
+        tiles_b = math.ceil(n_b / _TILE_B)
+        grid = min(tiles_a * tiles_b, sms * ctas_per_sm)
+        resident = fits and min(tiles_b, tiles_a * tiles_b // grid) >= _RESIDENT_MIN_WALK
     elif resident and not fits:
-        raise ValueError(f"a resident a-tile at D {d} needs {smem_bytes(d, True)} B of shared memory")
-    return LaunchPlan(resident, smem_bytes(d, resident), grid, n_pairs, _row_stride(d))
+        raise ValueError(f"a resident a-tile at D {d} needs {resident_smem_bytes(d)} B of shared memory")
+    n_pairs = tiles_a * math.ceil(n_b / tile_b(resident))
+    return LaunchPlan(resident, plan_smem_bytes(d, resident), min(n_pairs, sms * ctas_per_sm), n_pairs,
+                      _row_stride(d))
 
 
 @functools.lru_cache(maxsize=4096)
@@ -183,7 +228,7 @@ def fused_minscan(
     block_b: int = TABLE_BLOCK,
     directed: bool = False,
     plan: LaunchPlan | None = None,
-) -> None:
+) -> str | None:
     """One launch: fold the d² entries of (a, b) into ``min_a`` / ``min_b``.
 
     a (n_a, D), b (n_b, D): contiguous, fp32 or bf16, same dtype, on one
@@ -194,7 +239,8 @@ def fused_minscan(
     ``TILE``), or all None for an ungated scan.  ``directed=True`` launches
     the row-min-only instance and leaves ``min_b`` as given.  ``plan``
     overrides :func:`launch_plan` (for checks that results do not depend on
-    it).  Raises under grad mode when an input requires grad
+    it).  Returns the instance launched (:func:`instance`; None when a side
+    is empty).  Raises under grad mode when an input requires grad
     (:func:`repro_torch.kernels.refuse_grad`).
     """
     refuse_grad("hausdorff.fused_minscan", a, b, a2, b2, lb, cut_a, cut_b)
@@ -226,12 +272,12 @@ def fused_minscan(
         _check_vec("cut_b", cut_b, gj, dev)
         ld_lb = lb.stride(0)
     if n_a == 0 or n_b == 0:
-        return
+        return None
 
     if plan is None:
         plan = _planned(n_a, n_b, d, directed, dev.index if dev.index is not None else torch.cuda.current_device())
-    elif (plan.n_pairs, plan.ld, plan.smem) != (math.ceil(n_a / TILE) * math.ceil(n_b / TILE),
-                                              _row_stride(d), smem_bytes(d, plan.resident)):
+    elif (plan.n_pairs, plan.ld, plan.smem) != (math.ceil(n_a / TILE) * math.ceil(n_b / tile_b(plan.resident)),
+                                              _row_stride(d), plan_smem_bytes(d, plan.resident)):
         raise ValueError(f"plan {plan} does not fit an ({n_a}, {n_b}, {d}) scan")
     a = _staged(a, plan.ld)
     b = _staged(b, plan.ld)
@@ -248,7 +294,11 @@ def fused_minscan(
         )
     if err != 0:
         raise RuntimeError(f"fused_minscan launch failed: CUDA error {err}")
+    name = instance(plan.resident, directed)
     fused_minscan.launches += 1
+    fused_minscan.instance_launches[name] += 1
+    return name
 
 
 fused_minscan.launches = 0
+fused_minscan.instance_launches = dict.fromkeys(INSTANCES, 0)

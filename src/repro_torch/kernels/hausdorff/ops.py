@@ -85,9 +85,10 @@ def fused_min_sqdists(
     instance and lets the column side never veto a skip: min_b is then
     not computed on CUDA and not exact on the CPU, and must be ignored.
     """
-    # rows x cols pairs of d coordinates: the work handed to the kernel
+    # rows x cols pairs of d coordinates: the work handed to the kernel; on
+    # CUDA the span also names the kernel instance launched
     with _obs.span("hd.scan", device=a.device, rows=a.shape[0], cols=b.shape[0], d=a.shape[-1],
-                   directed=directed, pruned=prune_projs is not None):
+                   directed=directed, pruned=prune_projs is not None) as sp:
         if a.device.type == "cpu" and b.device.type == "cpu":
             return exact.fused_min_sqdists_tiled(
                 a, b, valid_a=valid_a, valid_b=valid_b,
@@ -114,10 +115,10 @@ def fused_min_sqdists(
 
         min_a = torch.full((n_a,), torch.inf, dtype=torch.float32, device=a.device)
         min_b = torch.full((n_b,), torch.inf, dtype=torch.float32, device=a.device)
-        K.fused_minscan(
+        sp.set(instance=K.fused_minscan(
             a, b, a2, b2, min_a, min_b, lb=lb, cut_a=cut_a, cut_b=cut_b,
             block_a=block_a, block_b=block_b, directed=directed,
-        )
+        ))
         return min_a, min_b
 
 

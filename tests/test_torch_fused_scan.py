@@ -220,14 +220,16 @@ def test_fit_block_is_a_tile_multiple():
     assert ops.fit_block(512, 300) == 384
 
 
+@pytest.mark.parametrize("resident", [None, True, False])
 @pytest.mark.parametrize("ctas_per_sm", [1, 2])
 @pytest.mark.parametrize("n_a,n_b", [(8, 8), (41_930, 1 << 20), (4096, 65_536), (1 << 20, 1 << 21)])
-def test_launch_grid_covers_every_tile_pair(n_a, n_b, ctas_per_sm):
-    """One launch covers every tile pair once: the CTAs' pair ranges tile
-    [0, tiles_a·tiles_b) without gap or overlap, and a small query side
-    still fills 132 SMs."""
-    plan = K.launch_plan(n_a, n_b, 256, 132, ctas_per_sm=ctas_per_sm)
-    tiles_a, tiles_b = -(-n_a // K.TILE), -(-n_b // K.TILE)
+def test_launch_grid_covers_every_tile_pair(n_a, n_b, ctas_per_sm, resident):
+    """One launch covers every tile pair once, of either instance's tile
+    (128 × 256 rows resident, 128 × 128 streamed): the CTAs' pair ranges
+    tile [0, tiles_a·tiles_b) without gap or overlap, and a small query
+    side still fills 132 SMs."""
+    plan = K.launch_plan(n_a, n_b, 256, 132, ctas_per_sm=ctas_per_sm, resident=resident)
+    tiles_a, tiles_b = -(-n_a // K.TILE), -(-n_b // K.tile_b(plan.resident))
     assert plan.n_pairs == tiles_a * tiles_b
     assert plan.grid == min(plan.n_pairs, 132 * ctas_per_sm) and plan.grid <= 2**31 - 1
     ranges = [K.pair_range(plan, c) for c in range(plan.grid)]
@@ -241,25 +243,70 @@ def test_launch_grid_covers_every_tile_pair(n_a, n_b, ctas_per_sm):
     assert divmod(last, tiles_b) == (tiles_a - 1, tiles_b - 1)
 
 
-@pytest.mark.parametrize("d", [1, 3, 17, 256, 784, 4096])
+@pytest.mark.parametrize("d", [1, 3, 17, 256, 257, 784, 4096])
 def test_launch_plan_shared_memory_fits(d):
     """Every plan stays within a block's 232,448 bytes of shared memory: the
-    a-tile is resident where it fits beside the ring (D up to 288) and a
-    CTA walks enough b-tiles, else streamed; a resident tile that cannot fit
-    is refused."""
+    resident instance where its a-tile fits beside the ring (D up to 256)
+    and a CTA walks enough of its 256-row b-tiles, else streamed; a
+    resident tile that cannot fit is refused."""
     for n_a, n_b in ((65_536, 65_536), (41_930, 1 << 20), (256, 256), (1 << 20, 128)):
         plan = K.launch_plan(n_a, n_b, d, 132)
-        assert plan.smem == K.smem_bytes(d, plan.resident) <= K.MAX_SMEM
+        assert plan.smem == K.plan_smem_bytes(d, plan.resident) <= K.MAX_SMEM
         assert plan.ld % 4 == 0 and plan.ld >= d
-        walk = min(-(-n_b // K.TILE), plan.n_pairs // plan.grid)
-        assert plan.resident == (d <= 288 and walk >= 4), (n_a, n_b, d, plan)
+        tiles_b = -(-n_b // K.tile_b(True))
+        walk = min(tiles_b, -(-n_a // K.TILE) * tiles_b // min(-(-n_a // K.TILE) * tiles_b, 132))
+        assert plan.resident == (d <= 256 and walk >= 4), (n_a, n_b, d, plan)
     streamed = K.launch_plan(65_536, 65_536, d, 132, resident=False)
-    assert not streamed.resident and streamed.smem <= K.MAX_SMEM
-    if d <= 288:
+    assert not streamed.resident and streamed.smem == K.smem_bytes(d, False) <= K.MAX_SMEM
+    if d <= 256:
         assert K.launch_plan(256, 256, d, 132, resident=True).resident
     else:
         with pytest.raises(ValueError, match="resident"):
             K.launch_plan(256, 256, d, 132, resident=True)
+
+
+@pytest.mark.parametrize("n_a,n_b,d,resident", [
+    (41_930, 1 << 20, 256, True),   # rc256.prohd_1m's sweeps
+    (262_144, 262_144, 256, True),  # rc256.exact_256k
+    (256, 256, 256, False),         # a stage-2b refine
+    (65_536, 65_536, 784, False),   # MNIST's D
+    (65_536, 65_536, 4096, False),  # an LM's width
+])
+def test_launch_plan_picks_the_instance(n_a, n_b, d, resident):
+    """The main path's shapes take the resident instance; small shapes and
+    wide D the streamed one, whose layout is the tile body's."""
+    plan = K.launch_plan(n_a, n_b, d, 132)
+    assert plan.resident == resident
+    assert plan.smem == (K.resident_smem_bytes(d) if resident else K.smem_bytes(d, False))
+    assert K.instance(plan.resident, True) == ("resident" if resident else "streamed") + ".directed"
+
+
+def test_resident_layout_mirrors_the_kernel_source():
+    """The Python mirror of the resident instance's layout takes the kernel
+    source's defaults; at D 256 (the largest that fits) its shared memory
+    is the a-tile's 8 slices, the 3-slot ring of 256-row slices, 14
+    mbarriers and two column rows."""
+    import re
+
+    src = K.SOURCE.read_text()
+    macro = lambda name: int(re.search(rf"#define {name} (\d+)", src).group(1))  # noqa: E731
+    assert K._RING == macro("MINSCAN_RING")
+    assert K.tile_b(True) == 16 * macro("MINSCAN_QN") and K.tile_b(False) == K.TILE
+    assert K.resident_smem_bytes(256) == 8 * 16_384 + 3 * 32_768 + 8 * 14 + 2 * 256 * 4 == 231_536
+    assert K.resident_smem_bytes(256) <= K.MAX_SMEM < K.resident_smem_bytes(257)
+    assert K.INSTANCES == tuple(K.instance(r, d) for r in (True, False) for d in (True, False))
+
+
+@pytest.mark.parametrize("n_b", [769, 4096, 262_144, 1 << 20])
+def test_prune_blocks_are_whole_resident_tiles(n_b):
+    """Where the plan takes the resident instance, the ops wrapper's
+    default prune-table block is a whole number of its 256-row b-tiles
+    (a block of an odd number of 128-row tiles still gates correctly: the
+    kernel then checks both blocks a b-tile spans)."""
+    plan = K.launch_plan(41_930, n_b, 256, 132)
+    assert plan.resident
+    assert K.TABLE_BLOCK % K.tile_b(True) == 0
+    assert ops.fit_block(K.TABLE_BLOCK, n_b) % K.tile_b(True) == 0
 
 
 def test_cuda_launcher_refuses_cpu_tensors_and_cpu_path_never_launches():
